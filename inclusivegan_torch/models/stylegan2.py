@@ -1,11 +1,15 @@
-"""StyleGAN2 generator, ported from ``inclusivegan_tpu/models/stylegan2.py``.
+"""StyleGAN2 generator and discriminator, ported from
+``inclusivegan_tpu/models/stylegan2.py``.
 
-``GMapping``, ``GSynthesis`` (skip, resnet and orig) and ``GMain`` in eval
-mode with truncation. Parameters and buffers carry the JAX package's names
+``GMapping``, ``GSynthesis`` (skip, resnet and orig), ``GMain`` in eval mode
+with truncation and in training mode with style mixing (``map_latents``,
+``forward(is_training=True)``), ``minibatch_stddev`` and the
+``Discriminator`` with its features head (skip, resnet and orig, one body).
+Parameters and buffers carry the JAX package's names
 (``synthesis.4x4.Conv.weight`` is ``params["synthesis"]["4x4"]["Conv"]
 ["weight"]``); dense weights keep the JAX layout [in, out], conv weights are
-OIHW ([k, k, I, O] there). ``snapshot.gmain_from_params`` carries a JAX
-parameter tree across.
+OIHW ([k, k, I, O] there). ``snapshot.gmain_from_params`` and
+``snapshot.discriminator_from_params`` carry a JAX parameter tree across.
 
 Parameters keep the dtype they were loaded with (the CelebA snapshot stores
 float16) while activations run in float32 (the JAX package's bf16 compute
@@ -14,9 +18,11 @@ parameter by a Python constant round in the parameter's dtype, as JAX's weak
 typing does (``_scale``), so the port computes what the JAX package computes.
 
 Random draws are explicit: synthesis noise is a dict of tensors (the
-``noise`` buffers by default) or, with ``randomize_noise=True``, comes from
-the ``torch.Generator`` the caller passes. The discriminator and
-training-mode style mixing are not ported yet.
+``noise`` buffers by default, or per-example [B, 1, h, w] draws from
+``GSynthesis.draw_noise``) or, with ``randomize_noise=True``, comes from the
+``torch.Generator`` the caller passes. Style mixing takes its second latents
+and its cutoff as an argument (``GMain.draw_mixing`` draws them), so that a
+test can hand in the JAX package's draws.
 """
 
 import math
@@ -27,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_bias_act, upsample2d, upsample_conv2d, conv_downsample2d
+from ..ops import (conv_downsample2d, downsample2d, fused_bias_act,
+                   upsample2d, upsample_conv2d)
 
 
 def nf(stage: int, fmap_base: int = 16 << 10, fmap_decay: float = 1.0,
@@ -104,6 +111,31 @@ def _params(**shapes) -> nn.Module:
     return m
 
 
+def minibatch_stddev(x, group_size: int = 6, num_new_features: int = 1,
+                     contiguous: bool = False):
+    """Append the mean standard deviation over groups of the batch as
+    ``num_new_features`` channels. Example n joins group n % M (strided) or,
+    with ``contiguous=True``, group n // g. Statistics in float32."""
+    n, c, h, w = x.shape
+    g = min(group_size, n)
+    if n % g != 0:  # groups must divide the batch; else one group of all
+        g = n
+    f = num_new_features
+    if contiguous:
+        y = x.reshape(-1, g, f, c // f, h, w).float()
+        y = (y - y.mean(dim=1, keepdim=True)).square().mean(dim=1)
+    else:
+        y = x.reshape(g, -1, f, c // f, h, w).float()
+        y = (y - y.mean(dim=0, keepdim=True)).square().mean(dim=0)
+    y = torch.sqrt(y + 1e-8)
+    y = y.mean(dim=(2, 3, 4), keepdim=True).mean(dim=2).to(x.dtype)  # [M, f, 1, 1]
+    if contiguous:
+        y = y.repeat_interleave(g, dim=0).repeat(1, 1, h, w)
+    else:
+        y = y.repeat(g, 1, h, w)
+    return torch.cat([x, y], dim=1)
+
+
 class GMapping(nn.Module):
     """Mapping network: normalize z, ``mapping_layers`` dense layers,
     broadcast to ``dlatent_broadcast`` layers. Labels are ignored, as in the
@@ -158,6 +190,8 @@ class GSynthesis(nn.Module):
         if resolution != 2 ** rlog2 or resolution < 4:
             raise ValueError(f"resolution must be a power of 2 >= 4, got {resolution}")
         self.resolution_log2 = rlog2
+        self.resolution = resolution
+        self.num_channels = num_channels
         self.num_layers = rlog2 * 2 - 2
         self.architecture = architecture
         self.nonlinearity = nonlinearity
@@ -195,6 +229,15 @@ class GSynthesis(nn.Module):
         ``randomize_noise=False``."""
         return {f"noise{i}": (1, 1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2))
                 for i in range(self.num_layers - 1)}
+
+    def draw_noise(self, batch: int, generator: torch.Generator
+                   ) -> Dict[str, torch.Tensor]:
+        """One [batch, 1, h, w] standard-normal image per layer, on the
+        generator's device: the training-mode noise, to pass as ``noise``
+        with ``randomize_noise=False``."""
+        return {k: torch.randn((batch,) + s[1:], generator=generator,
+                               device=generator.device)
+                for k, s in self.noise_shapes().items()}
 
     def forward(self, dlatents, *, noise: Optional[Dict[str, torch.Tensor]] = None,
                 randomize_noise: bool = True,
@@ -269,22 +312,69 @@ class GMain(nn.Module):
         self.noise = noise
         self.register_buffer("dlatent_avg", torch.zeros(mapping.dlatent_size))
 
+    def draw_mixing(self, batch: int, generator: torch.Generator,
+                    style_mixing_prob="default"):
+        """Style-mixing draws of one training-mode mapping, as the JAX
+        package draws them: second latents [batch, latent_size] and a
+        cutoff layer, ``randint(1, num_layers)`` with probability
+        ``style_mixing_prob``, else ``num_layers`` (no mixing). A 0-d tensor
+        on the generator's device, so that nothing waits for the card.
+        None when ``style_mixing_prob`` is None."""
+        if style_mixing_prob == "default":
+            style_mixing_prob = self.style_mixing_prob
+        if style_mixing_prob is None:
+            return None
+        dev = generator.device
+        num_layers = self.synthesis.num_layers
+        latents2 = torch.randn((batch, self.mapping.latent_size),
+                               generator=generator, device=dev)
+        mix = torch.rand((), generator=generator, device=dev) < style_mixing_prob
+        layer = torch.randint(1, num_layers, (), generator=generator, device=dev)
+        return latents2, torch.where(mix, layer, torch.full_like(layer, num_layers))
+
+    def map_latents(self, latents, labels=None, *, mixing=None,
+                    impl: str = "cuda"):
+        """Training-mode mapping and style mixing: latents [B, Z] ->
+        dlatents [B, L, D] (float32) and the batch average of the first
+        layer's dlatents, which the caller folds into ``dlatent_avg``
+        (``training.loss.fold_dlatent_avg``). ``mixing``: (latents2,
+        cutoff) from ``draw_mixing``; layers at and past the cutoff take
+        the dlatents of latents2. None mixes nothing."""
+        dlatents = self.mapping(latents, labels, impl=impl).float()
+        batch_avg = dlatents[:, 0].mean(dim=0)
+        if mixing is not None:
+            latents2, cutoff = mixing
+            dlatents2 = self.mapping(latents2.to(latents.device), labels,
+                                     impl=impl).float()
+            layer_idx = torch.arange(self.synthesis.num_layers,
+                                     device=dlatents.device)[None, :, None]
+            dlatents = torch.where(layer_idx < torch.as_tensor(
+                cutoff, device=dlatents.device), dlatents, dlatents2)
+        return dlatents, batch_avg
+
     def forward(self, latents, labels=None, *, truncation_psi=None,
                 truncation_cutoff="default", noise=None,
                 randomize_noise: bool = True,
                 generator: Optional[torch.Generator] = None,
-                return_dlatents: bool = False, impl: str = "cuda"):
-        """latents [B, latent_size] -> images [B, C, R, R] (and the truncated
-        dlatents when asked). ``truncation_psi=None`` takes the model's, 1
-        turns truncation off; ``noise`` defaults to the ``noise`` buffers."""
+                return_dlatents: bool = False, is_training: bool = False,
+                mixing=None, impl: str = "cuda"):
+        """latents [B, latent_size] -> images [B, C, R, R], then the
+        dlatents when asked, then, in training mode, the batch average for
+        the ``dlatent_avg`` EMA. Eval mode truncates (``truncation_psi=None``
+        takes the model's, 1 turns it off); training mode mixes styles with
+        ``mixing`` (see ``map_latents``) and never truncates. ``noise``
+        defaults to the ``noise`` buffers."""
         if truncation_psi is None:
             truncation_psi = self.truncation_psi
         if truncation_cutoff == "default":
             truncation_cutoff = self.truncation_cutoff
+        if is_training:
+            truncation_psi = None
         if truncation_psi is not None and truncation_psi == 1:
             truncation_psi = None
         num_layers = self.synthesis.num_layers
-        dlatents = self.mapping(latents, labels, impl=impl).float()
+        dlatents, batch_avg = self.map_latents(
+            latents, labels, mixing=mixing if is_training else None, impl=impl)
         if truncation_psi is not None:
             layer_idx = np.arange(num_layers)[None, :, None]
             layer_psi = np.ones(layer_idx.shape, np.float32)
@@ -300,4 +390,120 @@ class GMain(nn.Module):
         images = self.synthesis(dlatents, noise=noise,
                                 randomize_noise=randomize_noise,
                                 generator=generator, impl=impl)
-        return (images, dlatents) if return_dlatents else images
+        out = [images]
+        if return_dlatents:
+            out.append(dlatents)
+        if is_training:
+            out.append(batch_avg)
+        return tuple(out) if len(out) > 1 else images
+
+
+class Discriminator(nn.Module):
+    """Discriminator with the features head: FromRGB, one block per
+    resolution down to 8x8 (two convs, the second downsampling), minibatch
+    stddev, a 4x4 conv, a dense layer and the score. ``resnet`` adds a 1x1
+    downsampling skip per block, ``skip`` a FromRGB per block fed by the
+    downsampled image; ``orig`` has neither. Labels are ignored, as in the
+    JAX package."""
+
+    def __init__(self, num_channels=3, resolution=1024, label_size=0,
+                 fmap_base=16 << 10, fmap_decay=1.0, fmap_min=1, fmap_max=512,
+                 architecture="resnet", nonlinearity="lrelu",
+                 mbstd_group_size=6, mbstd_num_features=1,
+                 mbstd_contiguous=False,
+                 resample_kernel: Sequence[int] = (1, 3, 3, 1), init_mul=1.0):
+        super().__init__()
+        if architecture not in ("orig", "skip", "resnet"):
+            raise ValueError(f"unknown architecture {architecture!r}")
+        rlog2 = int(np.log2(resolution))
+        if resolution != 2 ** rlog2 or resolution < 4:
+            raise ValueError(f"resolution must be a power of 2 >= 4, got {resolution}")
+        self.resolution_log2 = rlog2
+        self.label_size = label_size
+        self.architecture = architecture
+        self.nonlinearity = nonlinearity
+        self.mbstd_group_size = mbstd_group_size
+        self.mbstd_num_features = mbstd_num_features
+        self.mbstd_contiguous = mbstd_contiguous
+        self.resample_kernel = list(resample_kernel)
+
+        def n(stage):
+            return nf(stage, fmap_base, fmap_decay, fmap_min, fmap_max)
+
+        def conv(k, cin, cout, bias=True):
+            return _params(weight=(cout, cin, k, k), **({"bias": (cout,)} if bias else {}))
+
+        for res in range(rlog2, 2, -1):
+            blk = nn.Module()
+            if architecture == "skip" or res == rlog2:
+                blk.add_module("FromRGB", conv(1, num_channels, n(res - 1)))
+            blk.add_module("Conv0", conv(3, n(res - 1), n(res - 1)))
+            blk.add_module("Conv1_down", conv(3, n(res - 1), n(res - 2)))
+            if architecture == "resnet":
+                blk.add_module("Skip", conv(1, n(res - 1), n(res - 2), bias=False))
+            self.add_module(f"{2 ** res}x{2 ** res}", blk)
+        b4 = nn.Module()
+        if architecture == "skip":
+            b4.add_module("FromRGB", conv(1, num_channels, n(1)))
+        mbstd_ch = mbstd_num_features if mbstd_group_size > 1 else 0
+        b4.add_module("Conv", conv(3, n(1) + mbstd_ch, n(1)))
+        b4.add_module("Dense0", _params(weight=(n(1) * 16, n(0)), bias=(n(0),)))
+        self.add_module("4x4", b4)
+        self.add_module("Output", _params(weight=(n(0), 1), bias=(1,)))
+
+    def forward(self, images, labels=None, impl: str = "cuda"):
+        """images [B, C, R, R] -> (scores [B], features [B, F]); features
+        concatenate every intermediate activation, each flattened and
+        divided by the square root of its length, in float32."""
+        rk = self.resample_kernel
+        act = self.nonlinearity
+        feats = []
+
+        def feat(x):
+            length = int(np.prod(x.shape[1:]))
+            feats.append((x.float() / float(np.sqrt(np.float32(length))))
+                         .reshape(x.shape[0], -1))
+
+        def fromrgb(x, y, p):
+            t = _bias_act(_conv2d(y, p.weight, impl=impl), p.bias, act=act,
+                          impl=impl)
+            return t if x is None else x + t
+
+        y = images.float()
+        feat(y)
+        x = None
+        for res in range(self.resolution_log2, 2, -1):
+            blk = getattr(self, f"{2 ** res}x{2 ** res}")
+            if self.architecture == "skip" or res == self.resolution_log2:
+                x = fromrgb(x, y, blk.FromRGB)
+                feat(x)
+            t = x
+            x = _bias_act(_conv2d(x, blk.Conv0.weight, impl=impl),
+                          blk.Conv0.bias, act=act, impl=impl)
+            x = _bias_act(_conv2d(x, blk.Conv1_down.weight, down=True,
+                                  resample_kernel=rk, impl=impl),
+                          blk.Conv1_down.bias, act=act, impl=impl)
+            if self.architecture == "resnet":
+                t = _conv2d(t, blk.Skip.weight, down=True, resample_kernel=rk,
+                            impl=impl)
+                x = _scale(x + t, 1 / np.sqrt(2))
+            feat(x)
+            if self.architecture == "skip":
+                y = downsample2d(y, rk, impl=impl)
+
+        b4 = getattr(self, "4x4")
+        if self.architecture == "skip":
+            x = fromrgb(x, y, b4.FromRGB)
+        if self.mbstd_group_size > 1:
+            x = minibatch_stddev(x, self.mbstd_group_size,
+                                 self.mbstd_num_features,
+                                 contiguous=self.mbstd_contiguous)
+        x = _bias_act(_conv2d(x, b4.Conv.weight, impl=impl), b4.Conv.bias,
+                      act=act, impl=impl)
+        feat(x)
+        x = _bias_act(_dense(x, b4.Dense0.weight), b4.Dense0.bias, act=act,
+                      impl=impl)
+        feat(x)
+        x = _bias_act(_dense(x, self.Output.weight), self.Output.bias, impl=impl)
+        feat(x)
+        return x[:, 0], torch.cat(feats, dim=1)

@@ -1,4 +1,4 @@
-// bias + leaky ReLU + gain, one elementwise pass, for sm_90a.
+// bias + leaky ReLU + gain, one elementwise pass, and its gradient, for sm_90a.
 //
 // Replaces inclusivegan_tpu/ops/pallas_kernels.py::_bias_lrelu_2d (kernel
 // body _bias_lrelu_kernel): y = where(x + b >= 0, x + b, alpha * (x + b)) * gain
@@ -18,6 +18,16 @@
 //
 // Arithmetic is float32 whatever the storage type: the sum, the sign test and
 // both scalings, rounded once on store.
+//
+// The gradient kernel (bias_lrelu_grad_launch) computes dx = slope(y) * dy
+// with slope = gain where y >= 0 and gain * alpha elsewhere: the tangent of
+// the TPU kernel's custom_jvp (pallas_kernels.py::_bias_act_jvp), read from
+// the output alone, since lrelu with gain > 0 keeps the sign of x + b. The
+// same kernel is the gradient's own gradient (slope(y) * ddx; y gets none,
+// as the slope is piecewise constant). It needs no channel: the bias
+// gradient, a sum of dx over every axis but the channel's, is left to the
+// caller, as JAX leaves it to XLA. Bound: memory, y and dy read once and dx
+// written once; four elements per thread where all three pointers allow.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +93,59 @@ int launch(const void* xp, const void* bp, void* yp, long long n, int C, long lo
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void bias_lrelu_grad_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                                       T* __restrict__ dx, long long n, float alpha, float gain) {
+  const long long stride = (long long)blockDim.x * gridDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const float slope = to_f32(y[i]) >= 0.0f ? gain : gain * alpha;
+    dx[i] = from_f32<T>(slope * to_f32(dy[i]));
+  }
+}
+
+template <typename T>
+__global__ void bias_lrelu_grad_vec4_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                                            T* __restrict__ dx, long long groups, float alpha,
+                                            float gain) {
+  using V = typename Vec4<T>::type;
+  const long long stride = (long long)blockDim.x * gridDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    V ry = reinterpret_cast<const V*>(y)[g];
+    V rd = reinterpret_cast<const V*>(dy)[g];
+    const T* ey = reinterpret_cast<const T*>(&ry);
+    T* ed = reinterpret_cast<T*>(&rd);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float slope = to_f32(ey[k]) >= 0.0f ? gain : gain * alpha;
+      ed[k] = from_f32<T>(slope * to_f32(ed[k]));
+    }
+    reinterpret_cast<V*>(dx)[g] = rd;
+  }
+}
+
+template <typename T>
+int launch_grad(const void* yp, const void* dyp, void* dxp, long long n, float alpha, float gain,
+                cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const T* y = static_cast<const T*>(yp);
+  const T* dy = static_cast<const T*>(dyp);
+  T* dx = static_cast<T*>(dxp);
+  const int threads = 256;
+  const bool vec = n % 4 == 0 && (uintptr_t)yp % 16 == 0 && (uintptr_t)dyp % 16 == 0 &&
+                   (uintptr_t)dxp % 16 == 0;
+  const long long work = vec ? n / 4 : n;
+  long long blocks = (work + threads - 1) / threads;
+  if (blocks > 65535) blocks = 65535;
+  if (vec) {
+    bias_lrelu_grad_vec4_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(y, dy, dx, work,
+                                                                            alpha, gain);
+  } else {
+    bias_lrelu_grad_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(y, dy, dx, n, alpha,
+                                                                       gain);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. x, y: n contiguous elements; b: C.
@@ -96,6 +159,20 @@ extern "C" int bias_lrelu_launch(const void* x, const void* b, void* y, long lon
     case 0: return launch<float>(x, b, y, n, C, inner, alpha, gain, s);
     case 1: return launch<__half>(x, b, y, n, C, inner, alpha, gain, s);
     case 2: return launch<__nv_bfloat16>(x, b, y, n, C, inner, alpha, gain, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dx = slope(y) * dy elementwise over n contiguous elements of y, dy and dx
+// (one dtype, as above). Returns the cudaError_t of the launch; does not
+// synchronise.
+extern "C" int bias_lrelu_grad_launch(const void* y, const void* dy, void* dx, long long n,
+                                      float alpha, float gain, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_grad<float>(y, dy, dx, n, alpha, gain, s);
+    case 1: return launch_grad<__half>(y, dy, dx, n, alpha, gain, s);
+    case 2: return launch_grad<__nv_bfloat16>(y, dy, dx, n, alpha, gain, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

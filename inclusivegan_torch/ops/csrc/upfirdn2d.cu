@@ -16,7 +16,16 @@
 // Taps arrive already flipped and multiplied by gain (so the loop is a
 // correlation), as a fixed-size by-value argument laid out KMAX x KMAX, with
 // KMAX = 4 or 8 fixed at compile time so the tap loops unroll. The sum is
-// float32 whatever the storage type, rounded once on store.
+// float32 whatever the storage type, rounded once on store. It takes the
+// taps in the plain version's order (row-major over the flipped taps), and
+// rounds each product and each sum (__fmul_rn, __fadd_rn: never contracted
+// into an FMA), so a float32 output equals the plain version's bit for bit.
+// The gradients of a training step sum millions of these outputs with
+// heavy cancellation (on the CPU a noise strength's gradient moves by up to
+// 0.55% when the 16-term sum is merely taken in reverse order:
+// tests/torch_golden/fir_order_sensitivity.py), so an FIR that rounded
+// otherwise would make the kernel path and the plain path disagree by more
+// than any fixed tolerance can tell from a fault.
 //
 // Bound: memory on the generator's shapes. An output pixel costs at most
 // 2*kh*kw = 32 operations for a 4x4 filter (a quarter of that when up = 2,
@@ -79,7 +88,8 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y, con
       if (row[i] < 0) continue;
 #pragma unroll
       for (int j = 0; j < KMAX; ++j) {
-        if (col[j] >= 0) acc += taps.v[i * KMAX + j] * to_f32(img[row[i] + col[j]]);
+        if (col[j] >= 0)
+          acc = __fadd_rn(acc, __fmul_rn(taps.v[i * KMAX + j], to_f32(img[row[i] + col[j]])));
       }
     }
     y[((long long)p * OH + oy) * OW + ox] = from_f32<T>(acc);

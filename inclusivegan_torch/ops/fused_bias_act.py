@@ -6,6 +6,18 @@ with the same default alpha and gain. The plain version is tensor code. For
 (``cuda_kernels.bias_lrelu``, which replaces the TPU's
 ``pallas_kernels.bias_act_lrelu_pallas``); ``impl="plain"`` asks for the
 tensor code on the card instead, for comparison.
+
+Every lrelu call, on the CPU too, goes through the autograd Function
+``_BiasLrelu``, whose forward takes the kernel or the plain version by
+device and saves only its output ``y``. Its backward is ``_BiasLreluGrad``:
+``dx = slope(y) * dy`` with ``slope = gain`` where ``y >= 0`` and
+``gain * alpha`` elsewhere (the TPU kernel's custom_jvp tangent), through
+the gradient kernel ``cuda_kernels.bias_lrelu_grad`` on a CUDA tensor; the
+bias gradient is the sum of ``dx`` over every axis but ``axis``.
+``_BiasLreluGrad`` is differentiable in turn, by the same kernel
+(``slope(y) * ddx``); ``y`` gets no gradient, since the slope is piecewise
+constant. So every order that R1 and the path-length regularizer need runs
+through the two kernels.
 """
 
 import math
@@ -36,6 +48,66 @@ activation_funcs = {
 }
 
 
+def _bias_lrelu_plain(x, b, axis, alpha, gain):
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    x = x + b.reshape(shape).to(x.dtype)
+    return torch.where(x >= 0, x, x * alpha) * gain
+
+
+def bias_lrelu_grad_plain(y, dy, alpha, gain):
+    """dx = slope(y) * dy: the plain version of the gradient kernel."""
+    slope = torch.where(y >= 0, gain, gain * alpha).to(dy.dtype)
+    return slope * dy
+
+
+class _BiasLrelu(torch.autograd.Function):
+    """y = lrelu(x + b[axis], alpha) * gain; ``b`` is in ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, b, axis, alpha, gain, use_kernel):
+        if use_kernel:
+            y = cuda_kernels.bias_lrelu(x.contiguous(), b, axis, alpha, gain)
+        else:
+            y = _bias_lrelu_plain(x, b, axis, alpha, gain)
+        ctx.save_for_backward(y)
+        ctx.args = (axis, alpha, gain, use_kernel)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        axis, alpha, gain, use_kernel = ctx.args
+        # y enters detached: the slope has no gradient, so no gradient edge
+        # may lead back to this node (it would run on zeros)
+        dx = _BiasLreluGrad.apply(dy, y.detach(), alpha, gain, use_kernel)
+        db = None
+        if ctx.needs_input_grad[1]:
+            db = dx.sum(dim=[d for d in range(dx.ndim) if d != axis])
+        return dx, db, None, None, None, None
+
+
+class _BiasLreluGrad(torch.autograd.Function):
+    """dx = slope(y) * dy; linear in ``dy``, so its own backward is itself."""
+
+    @staticmethod
+    def forward(ctx, dy, y, alpha, gain, use_kernel):
+        ctx.save_for_backward(y)
+        ctx.args = (alpha, gain, use_kernel)
+        if use_kernel:
+            return cuda_kernels.bias_lrelu_grad(y.contiguous(),
+                                                dy.to(y.dtype).contiguous(),
+                                                alpha, gain)
+        return bias_lrelu_grad_plain(y, dy, alpha, gain)
+
+    @staticmethod
+    def backward(ctx, ddx):
+        (y,) = ctx.saved_tensors
+        alpha, gain, use_kernel = ctx.args
+        return (_BiasLreluGrad.apply(ddx, y, alpha, gain, use_kernel),
+                None, None, None, None)
+
+
 def fused_bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
                    axis: int = 1, act: str = "linear",
                    alpha: Optional[float] = None, gain: Optional[float] = None,
@@ -46,7 +118,8 @@ def fused_bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
 
     ``impl="cuda"`` launches the kernel for lrelu on a CUDA tensor and uses
     the tensor code on a CPU tensor; ``impl="plain"`` always uses the tensor
-    code."""
+    code. lrelu is differentiable to every order through ``_BiasLrelu``;
+    the other activations through autograd of their tensor code."""
     spec = activation_funcs[act]
     alpha = spec.def_alpha if alpha is None else float(alpha)
     gain = spec.def_gain if gain is None else float(gain)
@@ -58,10 +131,11 @@ def fused_bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
     if impl not in ("cuda", "plain"):
         raise ValueError(f"impl must be 'cuda' or 'plain', got {impl!r}")
 
-    if impl == "cuda" and x.is_cuda and act == "lrelu":
+    if act == "lrelu":
         if b is None:
             b = torch.zeros(x.shape[axis], dtype=x.dtype, device=x.device)
-        x = cuda_kernels.bias_lrelu(x.contiguous(), b, axis, alpha, gain)
+        x = _BiasLrelu.apply(x, b.to(x.dtype), axis % x.ndim, alpha, gain,
+                             impl == "cuda" and x.is_cuda)
     else:
         if b is not None:
             shape = [1] * x.ndim

@@ -9,6 +9,15 @@ kernel (``cuda_kernels.upfirdn2d``, which replaces the TPU's
 code on the card instead, for comparison. The transposed and strided
 convolutions around the FIR are ``torch.nn.functional`` calls, as the JAX
 package leaves them to XLA.
+
+Every call, on the CPU too, goes through the autograd Function
+``_UpFirDn2d``. The op is linear in ``x``; its backward is the same
+Function at the transposed configuration (the TPU kernel's
+``linear_call`` pair, ``pallas_kernels.py::_upfirdn_core``): flipped taps,
+``up`` and ``down`` swapped, the pad ``gpad`` that gives back the input's
+extent, and the same gain. Since that backward is a Function call again,
+every order of differentiation is exact and, on a CUDA tensor, runs through
+the kernel; its launches count as ``upfirdn2d_transposed``.
 """
 
 from typing import Optional, Tuple, Union
@@ -72,9 +81,43 @@ def upfirdn2d(x: torch.Tensor, f, up: int = 1, down: int = 1, pad: Pad = 0,
     if impl not in ("cuda", "plain"):
         raise ValueError(f"impl must be 'cuda' or 'plain', got {impl!r}")
     pad = _parse_padding(pad)
-    if impl == "cuda" and x.is_cuda:
-        return cuda_kernels.upfirdn2d(x.contiguous(), f, up, down, pad, gain)
-    return _upfirdn2d_plain(x, f, up, down, pad, gain)
+    return _UpFirDn2d.apply(x, f, up, down, pad, float(gain),
+                            impl == "cuda" and x.is_cuda, False)
+
+
+def transposed_config(f, up, down, pad, in_hw, out_hw):
+    """The upfirdn2d configuration of the gradient: (taps, up, down, pad),
+    with pad ``gpad`` as in ``pallas_kernels.py::_upfirdn_core``."""
+    kh, kw = f.shape
+    padx0, _, pady0, _ = pad
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
+    gpad = (kw - padx0 - 1, in_w * up - out_w * down + padx0 - up + 1,
+            kh - pady0 - 1, in_h * up - out_h * down + pady0 - up + 1)
+    return np.ascontiguousarray(f[::-1, ::-1]), down, up, gpad
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """``transposed`` marks a gradient's configuration, for the launch
+    counts only."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, pad, gain, use_kernel, transposed):
+        ctx.args = (f, up, down, pad, gain, use_kernel, transposed,
+                    tuple(x.shape[2:]))
+        if use_kernel:
+            return cuda_kernels.upfirdn2d(
+                x.contiguous(), f, up, down, pad, gain,
+                counter="upfirdn2d_transposed" if transposed else "upfirdn2d")
+        return _upfirdn2d_plain(x, f, up, down, pad, gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        f, up, down, pad, gain, use_kernel, transposed, in_hw = ctx.args
+        ft, upt, downt, gpad = transposed_config(f, up, down, pad, in_hw,
+                                                 tuple(dy.shape[2:]))
+        dx = _UpFirDn2d.apply(dy, ft, upt, downt, gpad, gain, use_kernel,
+                              not transposed)
+        return dx, None, None, None, None, None, None, None
 
 
 def _upfirdn2d_plain(x, f, up, down, pad, gain):

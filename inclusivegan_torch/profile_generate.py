@@ -23,6 +23,7 @@ from .run_generator import generate_images
 from .snapshot import load_snapshot
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
+    ("bias_lrelu_grad kernel", ("bias_lrelu_grad",)),
     ("bias_lrelu kernel", ("bias_lrelu",)),
     ("upfirdn2d kernel", ("upfirdn2d_kernel",)),
     ("convolution", ("conv", "xmma", "implicit", "winograd", "fft", "dgrad")),
@@ -65,15 +66,22 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"{torch.cuda.get_device_name(0)}: generate-images impl={args.impl}, "
           f"{args.batches} minibatches of {mb}")
-    print(f"wall {wall_ms:.3f} ms ({n / wall_ms * 1e3:.2f} images/s), device "
-          f"busy {device_ms:.3f} ms = {device_ms / wall_ms:.1%} of the wall time")
+    print(f"wall {wall_ms:.3f} ms ({n / wall_ms * 1e3:.2f} images/s)")
+    report(prof, wall_ms, args.trace)
+
+
+def report(prof, wall_ms: float, trace=None) -> None:
+    """Print the device's busy share of ``wall_ms`` and the kernels' device
+    time by group and by name; write a Chrome trace when asked."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise SystemExit("the profiler saw no device time")
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"device busy {device_ms:.3f} ms = {device_ms / wall_ms:.1%} of the "
+          f"wall time {wall_ms:.3f} ms")
     groups = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         g = groups[group_of(e.key)]
@@ -85,10 +93,10 @@ def main(argv=None):
     print("top kernels | device ms | launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"{e.key[:90]} | {e.self_device_time_total / 1e3:.3f} | {e.count}")
-    if args.trace:
-        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-        print(f"trace written to {args.trace}")
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+        print(f"trace written to {trace}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Read ``inclusivegan_tpu.network_snapshot.v1`` pickles and carry the JAX
-package's numpy parameter tree across to the port's ``GMain``.
+package's numpy parameter trees across to the port's ``GMain`` and
+``Discriminator``, and the whole (G, D, Gs) triple as a training state.
 
 A snapshot is a pickle of plain dicts and numpy arrays:
 ``{"format", "G", "D", "Gs"}`` with ``{"config", "params"}`` per network (the
@@ -14,7 +15,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from .models.stylegan2 import GMain, GMapping, GSynthesis
+from .models.stylegan2 import Discriminator, GMain, GMapping, GSynthesis
 
 SNAPSHOT_FORMAT = "inclusivegan_tpu.network_snapshot"
 
@@ -48,12 +49,12 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, np.n
 
 
 def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX Gs parameter tree as the port's state dict: keys joined with
-    ".", synthesis conv weights [k, k, I, O] transposed to OIHW, dtypes kept."""
+    """A JAX G or D parameter tree as the port's state dict: keys joined
+    with ".", conv weights [k, k, I, O] transposed to OIHW, dtypes kept."""
     state = {}
     for key, arr in _flatten(params):
         t = torch.from_numpy(np.array(arr))
-        if key.startswith("synthesis.") and key.endswith(".weight") and t.ndim == 4:
+        if key.endswith("weight") and t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()
         state[key] = t
     return state
@@ -73,10 +74,44 @@ def gmain_from_params(config: Dict[str, Any], params: Dict[str, Any],
     return G.to(device)
 
 
-def load_snapshot(path: str, device="cuda") -> GMain:
-    """The snapshot's Gs as the port's ``GMain`` on ``device``."""
+def discriminator_from_params(config: Dict[str, Any], params: Dict[str, Any],
+                              device="cuda") -> Discriminator:
+    """Build the port's ``Discriminator`` from a JAX ``Discriminator`` config
+    dict (the snapshot's ``D.config``) and its numpy parameter tree."""
+    cfg = dict(config)
+    cfg.pop("dtype", None)  # the stored compute dtype; the port runs float32
+    D = Discriminator(**cfg)
+    D.load_state_dict(params_to_state_dict(params), strict=True, assign=True)
+    return D.to(device)
+
+
+def _check_device(device) -> None:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the port on the CPU")
+
+
+def load_snapshot(path: str, device="cuda") -> GMain:
+    """The snapshot's Gs as the port's ``GMain`` on ``device``."""
+    _check_device(device)
     snap = read_snapshot(path)
     return gmain_from_params(snap["Gs"]["config"], snap["Gs"]["params"], device)
+
+
+def load_networks(path: str, device="cuda") -> Tuple[GMain, Discriminator, GMain]:
+    """The snapshot's (G, D, Gs) on ``device``, parameters in their stored
+    dtype, as the JAX package's ``training_loop.load_snapshot`` reads them."""
+    _check_device(device)
+    snap = read_snapshot(path)
+    G = gmain_from_params(snap["G"]["config"], snap["G"]["params"], device)
+    D = discriminator_from_params(snap["D"]["config"], snap["D"]["params"], device)
+    Gs = gmain_from_params(snap["Gs"]["config"], snap["Gs"]["params"], device)
+    return G, D, Gs
+
+
+def load_train_state(path: str, device="cuda"):
+    """The resume path of the JAX training loop: the snapshot's G, D and Gs
+    with fresh Adam moments, ``pl_mean`` 0 and step 0
+    (``training.train_state.create_train_state``)."""
+    from .training.train_state import create_train_state
+    return create_train_state(*load_networks(path, device))

@@ -1,7 +1,10 @@
 """The port's ops (inclusivegan_torch.ops) against the JAX package's on the
-same numpy inputs, on the CPU, where every op takes its plain version.
-float32, atol = rtol = 1e-5."""
+same numpy inputs, on the CPU, where every op takes its plain version through
+its autograd Function. float32, atol = rtol = 1e-5 for values; gradients,
+first and second order, against jax.grad at rtol 1e-4, atol 1e-5 (the
+tolerance of tests/test_ops.py for its own gradient checks)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +36,8 @@ def _zero_launch_counts():
     cuda_kernels.reset_launches()
     yield
     # CPU tensors take the plain versions: no kernel is ever launched here
-    assert cuda_kernels.launches == {"bias_lrelu": 0, "upfirdn2d": 0}
+    assert cuda_kernels.launches == {"bias_lrelu": 0, "bias_lrelu_grad": 0,
+                                     "upfirdn2d": 0, "upfirdn2d_transposed": 0}
 
 
 @pytest.mark.parametrize("jax_impl", ["conv", "ref"])
@@ -141,3 +145,124 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         build.build()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_kernels.load_library()
+
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _first_and_second_order(port_fn, jax_fn, x, w):
+    """Gradients of sum(f(x)^2 * w) and of sum(grad^2), port and JAX."""
+    xt = _t(x).requires_grad_()
+    (g,) = torch.autograd.grad((port_fn(xt).square() * _t(w)).sum(), xt,
+                               create_graph=True)
+    (gg,) = torch.autograd.grad(g.square().sum(), xt)
+
+    def loss(v):
+        return jnp.sum(jax_fn(v) ** 2 * w)
+
+    g_jax = jax.grad(loss)(jnp.asarray(x))
+    gg_jax = jax.grad(lambda v: jnp.sum(jax.grad(loss)(v) ** 2))(jnp.asarray(x))
+    return (g.detach().numpy(), np.asarray(g_jax)), (gg.numpy(), np.asarray(gg_jax))
+
+
+@pytest.mark.parametrize("up,down,pad", [
+    (1, 1, 1), (2, 1, 2), (1, 2, 1), (2, 2, 3),
+    (1, 1, (2, 1, 0, 3)), (2, 1, (1, -1, 2, 0)),
+])
+def test_upfirdn2d_gradients_match_jax(up, down, pad):
+    """The backward is the same op at the transposed configuration (flipped
+    taps, up and down swapped, gpad); to second order, as R1 and the
+    path-length reg need, against XLA autodiff of the JAX conv form."""
+    x = _rand((2, 3, 8, 8), seed=6)
+    f = jops.setup_filter(RK)
+    y_shape = jops.upfirdn2d(jnp.asarray(x), f, up=up, down=down, pad=pad).shape
+    w = _rand(y_shape, seed=7)
+    (g, g_jax), (gg, gg_jax) = _first_and_second_order(
+        lambda v: tops.upfirdn2d(v, tops.setup_filter(RK), up=up, down=down, pad=pad),
+        lambda v: jops.upfirdn2d(v, f, up=up, down=down, pad=pad), x, w)
+    np.testing.assert_allclose(g, g_jax, **GRAD_TOL)
+    np.testing.assert_allclose(gg, gg_jax, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", ["upsample2d", "downsample2d", "upsample_conv2d",
+                                  "conv_downsample2d"])
+def test_resample_gradients_match_jax(name):
+    """The FIR with the convolutions around it, as G and D call it; weight
+    gradients too."""
+    x = _rand((2, 4, 8, 8), seed=8)
+    wconv = _rand((3, 3, 4, 5), seed=9)
+    if name in ("upsample2d", "downsample2d"):
+        def port_fn(v, wt=None):
+            return getattr(tops, name)(v, RK)
+
+        def jax_fn(v, wj=None):
+            return getattr(jops, name)(v, RK)
+    else:
+        def port_fn(v, wt=_oihw(wconv)):
+            return getattr(tops, name)(v, wt, RK, factor=2)
+
+        def jax_fn(v, wj=jnp.asarray(wconv)):
+            return getattr(jops, name)(v, wj, RK, factor=2)
+    w = _rand(jax_fn(jnp.asarray(x)).shape, seed=10)
+    (g, g_jax), (gg, gg_jax) = _first_and_second_order(port_fn, jax_fn, x, w)
+    np.testing.assert_allclose(g, g_jax, **GRAD_TOL)
+    np.testing.assert_allclose(gg, gg_jax, **GRAD_TOL)
+    if name in ("upsample_conv2d", "conv_downsample2d"):
+        wt = _oihw(wconv).requires_grad_()
+        (gw,) = torch.autograd.grad((port_fn(_t(x), wt) * _t(w)).sum(), wt)
+        gw_jax = jax.grad(lambda wj: jnp.sum(jax_fn(jnp.asarray(x), wj) * w))(
+            jnp.asarray(wconv))
+        np.testing.assert_allclose(gw.numpy(), np.transpose(np.asarray(gw_jax),
+                                                            (3, 2, 0, 1)), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 3, 4, 4), 1), ((2, 4, 8, 8), 1),
+                                        ((4, 6), 1), ((4, 6), 0)])
+def test_bias_lrelu_gradients_match_jax(shape, axis):
+    """First and second order in x and the bias, against jax.grad through the
+    JAX plain form (the model's path) and through the Pallas kernel's
+    custom_jvp (interpreted on the CPU) for NCHW."""
+    x = _rand(shape, seed=11) * 2
+    b = _rand((shape[axis],), seed=12)
+    w = _rand(shape, seed=13)
+    impls = ["jax"] + (["pallas"] if len(shape) == 4 else [])
+    for impl in impls:
+        (g, g_jax), (gg, gg_jax) = _first_and_second_order(
+            lambda v: tops.fused_bias_act(v, _t(b), axis=axis, act="lrelu"),
+            lambda v: jops.fused_bias_act(v, jnp.asarray(b), axis=axis,
+                                          act="lrelu", impl=impl), x, w)
+        np.testing.assert_allclose(g, g_jax, **GRAD_TOL)
+        np.testing.assert_allclose(gg, gg_jax, **GRAD_TOL)
+        bt = _t(b).requires_grad_()
+        xt = _t(x).requires_grad_()
+        y = tops.fused_bias_act(xt, bt, axis=axis, act="lrelu")
+        (gx, gb) = torch.autograd.grad((y.square() * _t(w)).sum(), (xt, bt),
+                                       create_graph=True)
+        (ggb,) = torch.autograd.grad(gx.square().sum() + gb.square().sum(), bt)
+
+        def loss(xv, bv):
+            y = jops.fused_bias_act(xv, bv, axis=axis, act="lrelu", impl=impl)
+            return jnp.sum(y ** 2 * w)
+
+        gx_j, gb_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
+        ggb_j = jax.grad(lambda bv: sum(jnp.sum(t ** 2) for t in jax.grad(
+            loss, argnums=(0, 1))(jnp.asarray(x), bv)))(jnp.asarray(b))
+        np.testing.assert_allclose(gb.detach().numpy(), np.asarray(gb_j), **GRAD_TOL)
+        np.testing.assert_allclose(ggb.numpy(), np.asarray(ggb_j), **GRAD_TOL)
+
+
+def test_the_backward_functions_are_on_the_tape():
+    """The gradient of an op is the op's own Function again, so that
+    create_graph=True records it: the port's second-order path never leaves
+    the Functions for autograd of the plain tensor code."""
+    x = _t(_rand((1, 2, 6, 6))).requires_grad_()
+    y = tops.fused_bias_act(tops.upsample2d(x, RK), torch.zeros(2), act="lrelu")
+    (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    names = set()
+    stack = [g.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is not None and type(fn).__name__ not in names:
+            names.add(type(fn).__name__)
+            stack += [f for f, _ in fn.next_functions]
+    assert {"_BiasLreluGradBackward", "_UpFirDn2dBackward"} <= names, names
