@@ -12,7 +12,7 @@ Phases, each logged with the seconds since start:
      and record the arguments of every kernel launch of one forward at
      minibatch 4;
   4. every kernel at every one of those shapes against its plain PyTorch
-     version on the same inputs, float32 (and bfloat16 for bias_lrelu);
+     version on the same inputs, in float32, bfloat16 and float16, exactly;
   5. the main path: ``generate_images`` for 8 images in minibatches of 4,
      with the launch counts set to 0 just before and read just after; the
      images against the plain versions on the card and the JAX golden;
@@ -23,8 +23,9 @@ Phases, each logged with the seconds since start:
   7. the training slice: the arguments of every kernel launch of one
      training iteration of CelebA-128 config-e-Gskip-Dresnet at minibatch 6
      (forward, backward and double backward of both kernels), and each
-     kernel at each of those shapes against its plain version, float32 and,
-     for bias_lrelu and its gradient, bfloat16;
+     kernel at each of those shapes against its plain version, in float32,
+     bfloat16 and float16, exactly; then the upfirdn2d kernel in every one of
+     its dispatch branches (``FIR_BRANCHES``), in the three dtypes, exactly;
   8. autograd on the card: first- and second-order gradients through the
      kernels' autograd Functions against the plain versions, at the largest
      training shape of each op;
@@ -39,11 +40,17 @@ Phases, each logged with the seconds since start:
      (``inclusivegan_torch/testdata/celeba128_train_golden.npz``, minibatch
      3): loss scalars and each parameter's gradient norm, phase by phase,
      shown with cuDNN's default algorithms and held with convolutions
-     through PyTorch's own float32 GEMMs;
+     through PyTorch's own float32 GEMMs; then the gradient norm farthest
+     from the golden under the default algorithms, once more in float64
+     through the plain path, and how far the golden and the card's float32
+     readings each lie from it;
  11. times: the gradient kernel and upfirdn2d at its largest transposed
      configuration beside their plain versions, bounds and library calls;
-     seconds per phase of an iteration with and without the regularizers,
-     kernels and plain versions in turns; the IMLE rebuild.
+     upfirdn2d at every configuration that phase 9's main path launched it
+     with (launches, ms, bound, cuDNN's depthwise convolution) and
+     sum(launches * (ms - bound)); seconds per phase of an iteration with
+     and without the regularizers, kernels and plain versions in turns; the
+     IMLE rebuild.
 The build must take under 60 s, phases 3-6 under 180 s and phases 7-11
 under 300 s; a run over any budget fails. Any failure raises and the script
 exits non-zero. The last two lines are the kernels' JSON record and
@@ -75,13 +82,10 @@ TRAIN_BUDGET_S = 300  # phases 7-11
 
 # The training slice: CelebA-128 config-e-Gskip-Dresnet as
 # scripts/run_celeba_quality_loop.sh trains it (gamma 100, mirror augment,
-# rec weight 2.5, lazy intervals 4 and 16, lr 0.002, projector 512,
-# 10 samples per real, perturbation 0.05, candidate batches of 1024), at
-# the --minibatch-gpu default of run_training.py, 6; float32, as the JAX
-# package resumes this snapshot.
-LPIPS_WEIGHTS = os.path.join(HERE, "artifacts", "celeba_perceptual_vgg.npz")
-TRAIN_GOLDEN = os.path.join(HERE, "inclusivegan_torch", "testdata",
-                            "celeba128_train_golden.npz")
+# rec weight 2.5, lazy intervals 4 and 16, projector 512, 10 samples per
+# real, perturbation 0.05, candidate batches of 1024), at run_training.py's
+# --minibatch-gpu default of 6, float32, as the JAX package resumes this
+# snapshot.
 TRAIN_MB = 6
 DATA_SIZE = 60  # divisible by 2 * minibatch; 600 candidates
 TRAIN_CONFIG = dict(gamma=100.0, mirror_augment=True, NN_rec_lpips_weight=2.5,
@@ -90,17 +94,16 @@ IMLE_CONFIG = dict(num_samples_factor=10, init_proj_dim=512,
                    knn_perturb_factor=0.05, candidate_batch_size=1024)
 LRATE = 0.002
 GS_BETA = 0.5 ** (TRAIN_MB / 10000.0)  # G_smoothing_kimg 10
+LPIPS_WEIGHTS = os.path.join(HERE, "artifacts", "celeba_perceptual_vgg.npz")
+TRAIN_GOLDEN = os.path.join(HERE, "inclusivegan_torch", "testdata",
+                            "celeba128_train_golden.npz")
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
-# float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
-# Kernel against plain version, elementwise |k - p| <= atol + rtol * |p|.
-# float32: both sum in float32 in another order (FMA in the FIR), so they
-# agree to a few float32 roundings. bfloat16: the plain version rounds after
-# each of its 3 ops, the kernel once, so up to 4 roundings of 2^-8 each.
-TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+# Kernel against plain version, elementwise |k - p| <= atol + rtol * |p|:
+# exact in every dtype. Both round where the TPU kernels round (bias + lrelu
+# after the sum and after each product, in the storage dtype; the FIR once,
+# after a float32 sum taken in one order without FMA).
+DTYPES = ("float32", "bfloat16", "float16")
+TOL = {dtype: (0.0, 0.0) for dtype in DTYPES}
 # Images: uint8 levels, against the plain path and the JAX golden.
 IMG_MAX_LEVELS = 2
 IMG_MAX_FRACTION = 0.005
@@ -137,75 +140,6 @@ def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-
-
-def device_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
-    """Median device time of one ``fn()`` in ms. The card first spins on a
-    sleep kernel so that the host enqueues all ``iters`` launches before the
-    start event runs: the events then time the device, not the host."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-class Recorder:
-    """Records the arguments of every kernel-wrapper call while it is open
-    (the wrappers themselves are untouched and still count launches): the
-    shape of the input and the arguments that are not tensors, keywords
-    included, with taps as tuples so that calls can be told apart."""
-
-    def __init__(self, ck, np, names=("bias_lrelu", "upfirdn2d")):
-        self.ck, self.np = ck, np
-        self.calls = {name: [] for name in names}
-
-    def __enter__(self):
-        self.orig = {name: getattr(self.ck, name) for name in self.calls}
-        for name, fn in self.orig.items():
-            setattr(self.ck, name, self._wrap(name, fn))
-        return self
-
-    def _wrap(self, name, fn):
-        def call(x, *args, **kwargs):
-            key = tuple(tuple(map(tuple, a)) if isinstance(a, self.np.ndarray)
-                        else a for a in args if not hasattr(a, "data_ptr"))
-            self.calls[name].append((tuple(x.shape), key + tuple(kwargs.values())))
-            return fn(x, *args, **kwargs)
-        return call
-
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.ck, name, fn)
-
-    def unique(self, name):
-        return list(dict.fromkeys(self.calls[name]))
-
-
-def fir_ops(np, shape, f, up, down, pad) -> float:
-    """Multiply-adds the FIR needs for these inputs: taps that fall on an
-    inserted zero or outside the input are not counted."""
-    n, c, h, w = shape
-    kh, kw = f.shape
-    padx0, padx1, pady0, pady1 = pad
-    oh = (h * up + pady0 + pady1 - kh) // down + 1
-    ow = (w * up + padx0 + padx1 - kw) // down + 1
-
-    def hits(o, k, size, pad0):
-        u = np.arange(o)[:, None] * down + np.arange(k)[None, :] - pad0
-        return int(np.sum((u >= 0) & (u < size * up) & (u % up == 0)))
-
-    return 2.0 * n * c * hits(oh, kh, h, pady0) * hits(ow, kw, w, padx0)
 
 
 def compare_images(np, a, b):
@@ -291,6 +225,90 @@ def check_kernel(name, shape, kernel, plain, dtype, tol):
     return err.max().item()
 
 
+# Every dispatch branch of the upfirdn2d kernel: the tiled kernel at up and
+# down 1 and 2, with odd and even widths (4-byte and 16-byte copies),
+# negative pads, taps under 4x4, small images packed several to a step with
+# a last step that is not full (N*C not a multiple of the images a block
+# walks), images wider and taller than one tile; the direct kernel at taps
+# over 4x4 and up or down over 2. (input shape, 1-D taps, up, down, pad, gain)
+FIR_BRANCHES = (
+    ((24, 128, 129, 129), [1, 3, 3, 1], 1, 1, (1, 1, 1, 1), 1.0),
+    ((24, 128, 128, 128), [1, 3, 3, 1], 1, 1, (2, 2, 2, 2), 1.0),
+    ((600, 3, 64, 64), [1, 3, 3, 1], 2, 1, (2, 1, 2, 1), 4.0),
+    ((24, 3, 128, 128), [1, 3, 3, 1], 1, 2, (1, 1, 1, 1), 1.0),
+    ((5, 3, 17, 17), [1, 3, 3, 1], 2, 2, (3, 3, 3, 3), 1.0),
+    ((7, 3, 33, 31), [1, 3, 3, 1], 1, 1, (2, -1, -2, 1), 1.0),
+    ((3, 4, 12, 20), [1, 3, 3, 1], 1, 1, (-3, -3, 1, 1), 1.0),
+    ((13, 3, 8, 8), [1, 3, 3, 1], 1, 2, (-1, 2, 1, 1), 1.0),
+    ((11, 7, 9, 9), [1, 2, 1], 2, 1, (1, 2, 0, 1), 4.0),
+    ((9, 3, 16, 16), [1], 1, 1, (0, 0, 0, 0), 1.0),
+    ((37, 5, 17, 17), [1, 3, 3, 1], 1, 1, (2, 2, 2, 2), 1.0),
+    ((41, 3, 4, 4), [1, 3, 3, 1], 2, 1, (2, 1, 2, 1), 4.0),
+    ((1, 1, 300, 333), [1, 3, 3, 1], 1, 1, (1, 2, 2, 1), 1.0),
+    ((2, 2, 200, 400), [1, 3, 3, 1], 2, 1, (2, 1, 2, 1), 4.0),
+    ((3, 5, 19, 21), [1, 2, 3, 3, 2, 1], 1, 1, (3, 2, 3, 2), 1.0),
+    ((3, 5, 19, 21), [1, 2, 3, 3, 2, 1], 3, 1, (3, 2, 3, 2), 9.0),
+    ((3, 5, 40, 44), [1, 3, 3, 1], 1, 3, (1, 1, 1, 1), 1.0),
+)
+
+
+def check_fir_branches(np, torch, ck, gen):
+    """The upfirdn2d kernel against its plain version in every dispatch
+    branch and dtype, exactly."""
+    from inclusivegan_torch.ops import setup_filter, upfirdn2d
+    for shape, taps, up, down, pad, gain in FIR_BRANCHES:
+        f = setup_filter(taps)
+        for dtype in (getattr(torch, d) for d in DTYPES):
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            check_kernel(f"upfirdn2d branch {f.shape[0]}x{f.shape[1]} taps up {up} "
+                         f"down {down} pad {pad}", shape,
+                         lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
+                         lambda: upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain,
+                                           impl="plain"), dtype, TOL[str(dtype)[6:]])
+
+
+def float64_gradient_norm(torch, state0, lpips, cfg, batch, draws, phase_name, param,
+                          g_lrate, d_lrate, gs_beta, device="cuda"):
+    """The L2 norm of one parameter's gradient in one phase, from the state
+    ``state0``, with everything in float64 on the card through the plain
+    path. The port promotes to float32 where the JAX package does
+    (``.float()``); for this one reading every such promotion goes to
+    float64 instead, and so do tensors made from Python numbers."""
+    from inclusivegan_torch.training.train_step import make_train_step
+
+    def to64(v):
+        if isinstance(v, dict):
+            return {k: to64(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(to64(x) for x in v)
+        return v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+
+    state = copy.deepcopy(state0)
+    for net in (state.G, state.D, state.Gs):
+        net.double()
+    to_float = torch.Tensor.float
+    default = torch.get_default_dtype()
+    torch.Tensor.float = lambda self, *args, **kwargs: self.double(*args, **kwargs)
+    torch.set_default_dtype(torch.float64)
+    try:
+        step = make_train_step(state.G, state.D, to64(lpips), cfg, device=device,
+                               impl="plain")
+        runs = phase_runners(step, to64(batch), to64(draws), g_lrate, d_lrate, gs_beta,
+                             cfg.NN_rec_lpips_weight)
+        opt = dict(PHASES)[phase_name]
+        for name, _ in PHASES:  # the phases before it, then it
+            state, _s = runs[name](state)
+            if name == phase_name:
+                break
+        grad = getattr(state, opt).m[param]
+        if grad.dtype != torch.float64:
+            raise RuntimeError(f"the float64 run left a {grad.dtype} gradient")
+        return grad.norm().item()
+    finally:
+        torch.Tensor.float = to_float
+        torch.set_default_dtype(default)
+
+
 def training_slice(np, torch, ck, gen):
     """Phases 7-11. Returns the kernel records of the two new kernels, the
     main path's launch counts and the largest float32 error of each kernel."""
@@ -299,6 +317,9 @@ def training_slice(np, torch, ck, gen):
     from inclusivegan_torch.models.lpips import load_lpips_params
     from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
     from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    from inclusivegan_torch.ops.bench import (
+        F32_OPS_PER_S, HBM_BYTES_PER_S, Recorder, device_ms, fir_ops, print_rows,
+        time_configs)
     from inclusivegan_torch.profile_train import synthetic_batch
     from inclusivegan_torch.snapshot import load_networks
     from inclusivegan_torch.training.imle import IMLEOrchestrator
@@ -324,7 +345,7 @@ def training_slice(np, torch, ck, gen):
     draws = draw_train_step(G, TRAIN_MB, gen, cfg)
     names = ("bias_lrelu", "bias_lrelu_grad", "upfirdn2d")
     state = copy.deepcopy(state0)
-    with Recorder(ck, np, names) as rec:
+    with Recorder(ck, names) as rec:
         runs = phase_runners(steps["cuda"], batch, draws, LRATE, LRATE, GS_BETA,
                              cfg.NN_rec_lpips_weight)
         for name, _ in PHASES:
@@ -335,9 +356,10 @@ def training_slice(np, torch, ck, gen):
         f"{n} {len(rec.calls[n])} calls at {len(rec.unique(n))} shapes" for n in names))
 
     errs = dict.fromkeys(KERNELS, 0.0)
+    dtypes = [getattr(torch, d) for d in DTYPES]
     with torch.no_grad():
         for shape, (axis, alpha, gain) in rec.unique("bias_lrelu"):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                 b = torch.randn(shape[axis], device="cuda", generator=gen).to(dtype)
                 e = check_kernel("bias_lrelu", shape,
@@ -349,7 +371,7 @@ def training_slice(np, torch, ck, gen):
                 if dtype == torch.float32:
                     errs["bias_lrelu"] = max(errs["bias_lrelu"], e)
         for shape, (alpha, gain) in rec.unique("bias_lrelu_grad"):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                 dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                 e = check_kernel("bias_lrelu_grad", shape,
@@ -360,14 +382,17 @@ def training_slice(np, torch, ck, gen):
                     errs["bias_lrelu_grad"] = max(errs["bias_lrelu_grad"], e)
         for shape, (f, up, down, pad, gain, counter) in rec.unique("upfirdn2d"):
             f = np.asarray(f, np.float32)
-            x = torch.randn(shape, device="cuda", generator=gen)
-            e = check_kernel(
-                f"{counter} up {up} down {down} pad {pad}", shape,
-                lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
-                lambda: upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain,
-                                  impl="plain"),
-                torch.float32, TOL["float32"])
-            errs[counter] = max(errs[counter], e)
+            for dtype in dtypes:
+                x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                e = check_kernel(
+                    f"{counter} up {up} down {down} pad {pad}", shape,
+                    lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
+                    lambda: upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain,
+                                      impl="plain"),
+                    dtype, TOL[str(dtype)[6:]])
+                if dtype == torch.float32:
+                    errs[counter] = max(errs[counter], e)
+        check_fir_branches(np, torch, ck, gen)
 
     phase("8 autograd through the kernels against the plain versions")
     shape, (axis, alpha, gain) = max(rec.unique("bias_lrelu"),
@@ -440,17 +465,19 @@ def training_slice(np, torch, ck, gen):
     t = time.perf_counter()
     if not imle.needs_rebuild(0, 2 * TRAIN_MB):
         raise RuntimeError("iteration 0 must rebuild the IMLE pool")
-    imle.rebuild(generate_images, rec_set, verbose=False)
-    torch.cuda.synchronize()
-    rebuild_s = time.perf_counter() - t
-    r1, l1, z1, r2, l2, z2 = imle.next_rec_batch(rec_set, TRAIN_MB)
-    reals, labels = train_set.get_minibatch_np(2 * TRAIN_MB)
-    main_batch = {"reals_rec_1": r1, "labels_rec_1": l1, "latents_rec_1": z1,
-                  "reals_rec_2": r2, "labels_rec_2": l2, "latents_rec_2": z2,
-                  "reals": reals, "labels": labels}
-    state, scalars = steps["cuda"](state, main_batch, ggen, LRATE, LRATE, GS_BETA,
-                                   do_g_reg=True, do_d_reg=True)
-    torch.cuda.synchronize()
+    # the FIR's configurations of the main path, timed in phase 11
+    with Recorder(ck, ("upfirdn2d",)) as fir_rec:
+        imle.rebuild(generate_images, rec_set, verbose=False)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t
+        r1, l1, z1, r2, l2, z2 = imle.next_rec_batch(rec_set, TRAIN_MB)
+        reals, labels = train_set.get_minibatch_np(2 * TRAIN_MB)
+        main_batch = {"reals_rec_1": r1, "labels_rec_1": l1, "latents_rec_1": z1,
+                      "reals_rec_2": r2, "labels_rec_2": l2, "latents_rec_2": z2,
+                      "reals": reals, "labels": labels}
+        state, scalars = steps["cuda"](state, main_batch, ggen, LRATE, LRATE, GS_BETA,
+                                       do_g_reg=True, do_d_reg=True)
+        torch.cuda.synchronize()
     launches = dict(ck.launches)
     main_s = time.perf_counter() - t
     batches = math.ceil(n_cand / IMLE_CONFIG["candidate_batch_size"])
@@ -552,7 +579,8 @@ def training_slice(np, torch, ck, gen):
 
     def against_golden():
         """Every phase from the golden's state; returns (what, relative
-        difference, limit) for each loss scalar, gradient norm and pl_mean."""
+        difference, limit, the card's value) for each loss scalar, gradient
+        norm and pl_mean."""
         out = []
         cur = copy.deepcopy(state0)
         for name, opt in PHASES:
@@ -560,19 +588,20 @@ def training_slice(np, torch, ck, gen):
             for k, v in sk.items():
                 ref = float(golden[f"scalar/{name}/{k}"])
                 out.append((f"{name} {k}", abs(v.item() - ref) / abs(ref),
-                            GOLDEN_SCALAR_RTOL))
+                            GOLDEN_SCALAR_RTOL, v.item()))
             prefix = f"grad_norm/{name}/"
             ref = {k[len(prefix):]: float(golden[k]) for k in golden.files
                    if k.startswith(prefix)}
             m = getattr(cur, opt).m
             if set(ref) != set(m):
                 raise RuntimeError(f"{name}: parameters differ from the golden's")
+            norms = {k: m[k].double().norm().item() for k in ref}
             out += [(f"{name} gradient norm of {k}",
-                     abs(m[k].double().norm().item() - ref[k]) / max(ref[k], 1e-30),
-                     GOLDEN_NORM_RTOL) for k in ref]
+                     abs(norms[k] - ref[k]) / max(ref[k], 1e-30), GOLDEN_NORM_RTOL,
+                     norms[k]) for k in ref]
         ref = float(golden["pl_mean"])
         out.append(("pl_mean", abs(cur.pl_mean.item() - ref) / abs(ref),
-                    GOLDEN_SCALAR_RTOL))
+                    GOLDEN_SCALAR_RTOL, cur.pl_mean.item()))
         return out
 
     def summary(rows):
@@ -589,7 +618,8 @@ def training_slice(np, torch, ck, gen):
     # moves by up to 0.55% on a mere change of summation order
     # (tests/torch_golden/fir_order_sensitivity.py). Shown, not held:
     log("default cuDNN algorithms (not held to the limits):")
-    summary(against_golden())
+    default_rows = against_golden()
+    summary(default_rows)
     # Held: the same iteration with convolutions through PyTorch's own
     # im2col and float32 GEMMs (cuDNN off) and deterministic algorithms.
     torch.backends.cudnn.enabled = False
@@ -599,10 +629,29 @@ def training_slice(np, torch, ck, gen):
     torch.backends.cudnn.enabled = True
     log("convolutions without cuDNN, deterministic algorithms (held):")
     summary(rows)
-    for what, diff, limit in rows:
+    for what, diff, limit, _ in rows:
         if not diff <= limit:
             raise RuntimeError(f"{what} disagrees with the JAX golden: relative "
                                f"difference {diff:.3e} over {limit:g}")
+
+    # The gradient norm farthest from the golden under the default algorithms,
+    # once more in float64 through the plain path: how far the JAX golden
+    # (float32 on the CPU) and the card's float32 results each lie from it.
+    what = max((r for r in default_rows if " gradient norm of " in r[0]),
+               key=lambda r: r[1])[0]
+    name, param = what.split(" gradient norm of ")
+    norm64 = float64_gradient_norm(torch, state0, lpips, gcfg, gbatch, gdraws,
+                                   name, param, float(golden["g_lrate"]),
+                                   float(golden["d_lrate"]), float(golden["gs_beta"]))
+    ref = float(golden[f"grad_norm/{name}/{param}"])
+    log(f"{what} in float64 on the card (plain path): {norm64:.9g}")
+    readings = [("JAX golden, float32 on the CPU", ref)] + [
+        (label, next(r[3] for r in rows_ if r[0] == what))
+        for label, rows_ in (("the card, float32, default cuDNN", default_rows),
+                             ("the card, float32, convolutions without cuDNN", rows))]
+    for label, value in readings:
+        log(f"  {label}: relative difference from float64 "
+            f"{abs(value - norm64) / norm64:.3e}")
 
     phase("11 times")
     records = []
@@ -611,8 +660,8 @@ def training_slice(np, torch, ck, gen):
                                    key=lambda k: math.prod(k[0]))
         y = torch.randn(shape, device="cuda", generator=gen)
         dy = torch.randn(shape, device="cuda", generator=gen)
-        ms = device_ms(torch, lambda: ck.bias_lrelu_grad(y, dy, alpha, gain))
-        plain_ms = device_ms(torch, lambda: bias_lrelu_grad_plain(y, dy, alpha, gain))
+        ms = device_ms(lambda: ck.bias_lrelu_grad(y, dy, alpha, gain))
+        plain_ms = device_ms(lambda: bias_lrelu_grad_plain(y, dy, alpha, gain))
         t_bytes = 3 * y.numel() * y.element_size() / HBM_BYTES_PER_S
         t_ops = 2 * y.numel() / F32_OPS_PER_S  # a select and a multiply
         records.append(dict(
@@ -633,8 +682,8 @@ def training_slice(np, torch, ck, gen):
         x = torch.randn(shape, device="cuda", generator=gen)
         kern = lambda: ck.upfirdn2d(x, f, up, down, pad, gain,  # noqa: E731
                                     counter="upfirdn2d_transposed")
-        ms = device_ms(torch, kern)
-        plain_ms = device_ms(torch, lambda: upfirdn2d(x, f, up=up, down=down, pad=pad,
+        ms = device_ms(kern)
+        plain_ms = device_ms(lambda: upfirdn2d(x, f, up=up, down=down, pad=pad,
                                                       gain=gain, impl="plain"))
         y = kern()
         library_ms = None
@@ -648,9 +697,9 @@ def training_slice(np, torch, ck, gen):
             log(f"depthwise conv2d vs transposed FIR: max abs err {lib_err:.3e}")
             if lib_err > 1e-4:
                 raise RuntimeError("depthwise conv2d does not compute the FIR")
-            library_ms = device_ms(torch, lib)
+            library_ms = device_ms(lib)
         t_bytes = (x.numel() + y.numel()) * x.element_size() / HBM_BYTES_PER_S
-        t_ops = fir_ops(np, shape, f, up, down, pad) / F32_OPS_PER_S
+        t_ops = fir_ops(shape, f, up, down, pad) / F32_OPS_PER_S
         records.append(dict(
             name="upfirdn2d_transposed", route="cuda",
             source="inclusivegan_torch/ops/csrc/upfirdn2d.cu",
@@ -662,6 +711,12 @@ def training_slice(np, torch, ck, gen):
             library_ms=library_ms, shape=list(shape),
             config=dict(up=up, down=down, pad=list(pad), gain=gain)))
         del x, y
+    log(f"upfirdn2d at every configuration of the main path (IMLE rebuild and "
+        f"iteration 0, {len(fir_rec.calls['upfirdn2d'])} launches):")
+    if len(fir_rec.calls["upfirdn2d"]) != (main_launches["upfirdn2d"]
+                                           + main_launches["upfirdn2d_transposed"]):
+        raise RuntimeError("the recorded FIR calls do not match the launch counts")
+    print_rows(time_configs(ck, fir_rec.calls["upfirdn2d"], gen, log=log), log=log)
     for r in records:
         log(f"{r['name']} at {tuple(r['shape'])}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -732,6 +787,8 @@ def main() -> int:
     from inclusivegan_torch.ops import build, cuda_kernels as ck
     from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
     from inclusivegan_torch.run_generator import generate_images
+    from inclusivegan_torch.ops.bench import (
+        F32_OPS_PER_S, HBM_BYTES_PER_S, Recorder, device_ms, fir_ops, plan_summary)
     from inclusivegan_torch.snapshot import load_snapshot
 
     phase(f"2 build (budget {BUILD_BUDGET_S} s)")
@@ -753,7 +810,7 @@ def main() -> int:
         f"{G.mapping.dlatent_size}, psi {G.truncation_psi}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     z = torch.randn(MINIBATCH, G.mapping.latent_size, device="cuda", generator=gen)
-    with torch.no_grad(), Recorder(ck, np) as rec:
+    with torch.no_grad(), Recorder(ck) as rec:
         imgs = G(z, randomize_noise=False)
     torch.cuda.synchronize()
     if not torch.isfinite(imgs).all():
@@ -769,38 +826,27 @@ def main() -> int:
     phase("4 kernels against their plain versions on the card")
     errs = {"bias_lrelu": 0.0, "upfirdn2d": 0.0}
     with torch.no_grad():
-        for shape, (axis, alpha, gain) in rec.unique("bias_lrelu"):
-            for dtype in (torch.float32, torch.bfloat16):
-                atol, rtol = TOL[str(dtype).split(".")[1]]
+        for dtype in (getattr(torch, d) for d in DTYPES):
+            tol = TOL[str(dtype)[6:]]
+            for shape, (axis, alpha, gain) in rec.unique("bias_lrelu"):
                 x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                 b = torch.randn(shape[axis], device="cuda", generator=gen).to(dtype)
-                yk = ck.bias_lrelu(x, b, axis, alpha, gain).float()
-                yp = fused_bias_act(x, b, axis=axis, act="lrelu", alpha=alpha,
-                                    gain=gain, impl="plain").float()
-                err = (yk - yp).abs()
-                ok = bool((err <= atol + rtol * yp.abs()).all())
-                log(f"bias_lrelu {str(dtype)[6:]:8s} {shape}: max abs err "
-                    f"{err.max().item():.3e} (atol {atol:g}, rtol {rtol:g}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise RuntimeError(f"bias_lrelu disagrees at {shape} {dtype}")
+                e = check_kernel("bias_lrelu", shape,
+                                 lambda: ck.bias_lrelu(x, b, axis, alpha, gain),
+                                 lambda: fused_bias_act(x, b, axis=axis, act="lrelu",
+                                                        alpha=alpha, gain=gain,
+                                                        impl="plain"), dtype, tol)
                 if dtype == torch.float32:
-                    errs["bias_lrelu"] = max(errs["bias_lrelu"], err.max().item())
-        atol, rtol = TOL["float32"]
-        for shape, (f, up, down, pad, gain, _counter) in rec.unique("upfirdn2d"):
-            f = np.asarray(f, np.float32)
-            x = torch.randn(shape, device="cuda", generator=gen)
-            yk = ck.upfirdn2d(x, f, up, down, pad, gain)
-            yp = upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain, impl="plain")
-            err = (yk - yp).abs()
-            ok = yk.shape == yp.shape and bool((err <= atol + rtol * yp.abs()).all())
-            log(f"upfirdn2d float32 {shape} up {up} down {down} pad {pad} "
-                f"gain {gain:g} -> {tuple(yk.shape)}: max abs err "
-                f"{err.max().item():.3e} (atol {atol:g}, rtol {rtol:g}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"upfirdn2d disagrees at {shape}")
-            errs["upfirdn2d"] = max(errs["upfirdn2d"], err.max().item())
+                    errs["bias_lrelu"] = max(errs["bias_lrelu"], e)
+            for shape, (f, up, down, pad, gain, _counter) in rec.unique("upfirdn2d"):
+                f = np.asarray(f, np.float32)
+                x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                e = check_kernel(f"upfirdn2d up {up} down {down} pad {pad} gain {gain:g}",
+                                 shape, lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
+                                 lambda: upfirdn2d(x, f, up=up, down=down, pad=pad,
+                                                   gain=gain, impl="plain"), dtype, tol)
+                if dtype == torch.float32:
+                    errs["upfirdn2d"] = max(errs["upfirdn2d"], e)
 
     phase("5 main path: generate-images, 8 images in minibatches of 4")
     ck.reset_launches()
@@ -835,8 +881,8 @@ def main() -> int:
                                          key=lambda k: math.prod(k[0]))
         x = torch.randn(shape, device="cuda", generator=gen)
         b = torch.randn(shape[axis], device="cuda", generator=gen)
-        ms = device_ms(torch, lambda: ck.bias_lrelu(x, b, axis, alpha, gain))
-        plain_ms = device_ms(torch, lambda: fused_bias_act(
+        ms = device_ms(lambda: ck.bias_lrelu(x, b, axis, alpha, gain))
+        plain_ms = device_ms(lambda: fused_bias_act(
             x, b, axis=axis, act="lrelu", alpha=alpha, gain=gain, impl="plain"))
         nbytes = 2 * x.numel() * x.element_size() + b.numel() * b.element_size()
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * x.numel() / F32_OPS_PER_S
@@ -853,10 +899,12 @@ def main() -> int:
             rec.unique("upfirdn2d"), key=lambda k: math.prod(k[0]))
         f = np.asarray(f, np.float32)
         x = torch.randn(shape, device="cuda", generator=gen)
-        ms = device_ms(torch, lambda: ck.upfirdn2d(x, f, up, down, pad, gain))
-        plain_ms = device_ms(torch, lambda: upfirdn2d(
+        ms = device_ms(lambda: ck.upfirdn2d(x, f, up, down, pad, gain))
+        plain_ms = device_ms(lambda: upfirdn2d(
             x, f, up=up, down=down, pad=pad, gain=gain, impl="plain"))
         y = ck.upfirdn2d(x, f, up, down, pad, gain)
+        log(f"upfirdn2d launch at {shape}: "
+            f"{plan_summary(shape, ck.upfirdn2d_plan(x, f, up, down, pad))}")
         library_ms = None
         if up == down == 1 and len(set(pad)) == 1:
             # the same FIR as one depthwise convolution (cuDNN), as yardstick
@@ -868,11 +916,11 @@ def main() -> int:
             log(f"depthwise conv2d vs kernel: max abs err {lib_err:.3e}")
             if lib_err > 1e-4:
                 raise RuntimeError("depthwise conv2d does not compute the FIR")
-            library_ms = device_ms(torch, lambda: torch.nn.functional.conv2d(
+            library_ms = device_ms(lambda: torch.nn.functional.conv2d(
                 x, w, padding=pad[0], groups=c))
         nbytes = (x.numel() + y.numel()) * x.element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = fir_ops(np, shape, f, up, down, pad) / F32_OPS_PER_S
+        t_ops = fir_ops(shape, f, up, down, pad) / F32_OPS_PER_S
         records.append(dict(
             name="upfirdn2d", route="cuda",
             source="inclusivegan_torch/ops/csrc/upfirdn2d.cu",

@@ -14,6 +14,7 @@ upfirdn2d kernel at the transposed configuration, counted apart as
 """
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -42,6 +43,9 @@ def load_library() -> ctypes.CDLL:
         lib.upfirdn2d_launch.argtypes = [p, p, ctypes.POINTER(f), i, i, ll,
                                          i, i, i, i, i, i, i, i, i, p]
         lib.upfirdn2d_launch.restype = i
+        lib.upfirdn2d_plan.argtypes = [p, i, i, ll, i, i, i, i, i, i, i, i, i,
+                                       ctypes.POINTER(i)]
+        lib.upfirdn2d_plan.restype = i
         _lib = lib
     return _lib
 
@@ -66,9 +70,27 @@ def _raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``: JAX rounds a Python float to the array's
+    dtype before it multiplies (weak typing). Torch multiplies a float16 or
+    bfloat16 tensor by a Python float in float32 and rounds once; with the
+    scalar rounded first, that is the exact product rounded to the dtype.
+    Cached, since every bias+lrelu launch asks for it."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes(alpha: float, gain: float, dtype: torch.dtype):
+    """The float32 slopes (gain, gain * alpha) rounded to ``dtype``, as
+    ``bias_lrelu_grad_plain`` makes them."""
+    return tuple(torch.tensor([gain, gain * alpha]).to(dtype).tolist())
+
+
 def bias_lrelu(x: torch.Tensor, b: torch.Tensor, axis: int = 1,
                alpha: float = 0.2, gain: float = math.sqrt(2)) -> torch.Tensor:
-    """y = lrelu(x + b, alpha) * gain with b along ``axis`` of a CUDA ``x``."""
+    """y = lrelu(x + b, alpha) * gain with b along ``axis`` of a CUDA ``x``,
+    rounded to ``x``'s dtype after the sum and after each product."""
     _check_tensor("bias_lrelu", x)
     axis = axis % x.ndim
     c = x.shape[axis]
@@ -76,6 +98,8 @@ def bias_lrelu(x: torch.Tensor, b: torch.Tensor, axis: int = 1,
         raise ValueError(f"bias_lrelu: bias must be [{c}] on {x.device}, "
                          f"got {tuple(b.shape)} on {b.device}")
     b = b.to(x.dtype).contiguous()
+    # rounded to x's dtype, as the plain version (and JAX) rounds them
+    alpha, gain = rounded(alpha, x.dtype), rounded(gain, x.dtype)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = load_library().bias_lrelu_launch(
@@ -91,21 +115,43 @@ def bias_lrelu_grad(y: torch.Tensor, dy: torch.Tensor, alpha: float = 0.2,
                     gain: float = math.sqrt(2)) -> torch.Tensor:
     """dx = dy * (gain where y >= 0, else gain * alpha), elementwise, for
     CUDA tensors ``y`` (the forward's output) and ``dy`` of one shape and
-    dtype."""
+    dtype; each slope is float32 rounded to that dtype."""
     _check_tensor("bias_lrelu_grad", y)
     _check_tensor("bias_lrelu_grad", dy)
     if dy.shape != y.shape or dy.dtype != y.dtype or dy.device != y.device:
         raise ValueError(f"bias_lrelu_grad: dy {tuple(dy.shape)} {dy.dtype} on "
                          f"{dy.device} does not match y {tuple(y.shape)} "
                          f"{y.dtype} on {y.device}")
+    slope_pos, slope_neg = _slopes(alpha, gain, y.dtype)
     dx = torch.empty_like(y)
     with torch.cuda.device(y.device):
         err = load_library().bias_lrelu_grad_launch(
-            y.data_ptr(), dy.data_ptr(), dx.data_ptr(), y.numel(), alpha, gain,
+            y.data_ptr(), dy.data_ptr(), dx.data_ptr(), y.numel(), slope_pos, slope_neg,
             _DTYPE_CODES[y.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on_error("bias_lrelu_grad", err)
     launches["bias_lrelu_grad"] += 1
     return dx
+
+
+def _fir_args(name: str, x: torch.Tensor, f: np.ndarray, up: int, down: int, pad):
+    """Checks an upfirdn2d call; returns the output's shape and the
+    launch's arguments after the pointers: kh, kw, n*c, h, w, oh, ow, up,
+    down, padx0, pady0, dtype code."""
+    _check_tensor(name, x)
+    if x.ndim != 4:
+        raise ValueError(f"{name}: expects NCHW, got shape {tuple(x.shape)}")
+    kh, kw = np.shape(f)
+    if kh > _MAX_TAPS or kw > _MAX_TAPS:
+        raise ValueError(f"{name}: filter {kh}x{kw} exceeds "
+                         f"{_MAX_TAPS}x{_MAX_TAPS}")
+    padx0, padx1, pady0, pady1 = pad
+    n, c, h, w = x.shape
+    oh = (h * up + pady0 + pady1 - kh) // down + 1
+    ow = (w * up + padx0 + padx1 - kw) // down + 1
+    if oh < 1 or ow < 1:
+        raise ValueError(f"{name}: empty output {oh}x{ow}")
+    return ((n, c, oh, ow),
+            (kh, kw, n * c, h, w, oh, ow, up, down, padx0, pady0, _DTYPE_CODES[x.dtype]))
 
 
 def upfirdn2d(x: torch.Tensor, f: np.ndarray, up: int, down: int,
@@ -116,30 +162,33 @@ def upfirdn2d(x: torch.Tensor, f: np.ndarray, up: int, down: int,
     transposed configuration, ``"upfirdn2d_transposed"``."""
     if counter not in ("upfirdn2d", "upfirdn2d_transposed"):
         raise ValueError(f"upfirdn2d: unknown counter {counter!r}")
-    _check_tensor("upfirdn2d", x)
-    if x.ndim != 4:
-        raise ValueError(f"upfirdn2d: expects NCHW, got shape {tuple(x.shape)}")
-    f = np.asarray(f, np.float32)
-    kh, kw = f.shape
-    if kh > _MAX_TAPS or kw > _MAX_TAPS:
-        raise ValueError(f"upfirdn2d: filter {kh}x{kw} exceeds "
-                         f"{_MAX_TAPS}x{_MAX_TAPS}")
-    padx0, padx1, pady0, pady1 = pad
-    n, c, h, w = x.shape
-    oh = (h * up + pady0 + pady1 - kh) // down + 1
-    ow = (w * up + padx0 + padx1 - kw) // down + 1
-    if oh < 1 or ow < 1:
-        raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
+    out_shape, args = _fir_args("upfirdn2d", x, f, up, down, pad)
     # flipped for convolution and scaled by gain, as the TPU kernel bakes them
-    taps = np.ascontiguousarray((f * gain)[::-1, ::-1], np.float32)
-    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    taps = np.ascontiguousarray((np.asarray(f, np.float32) * gain)[::-1, ::-1],
+                                np.float32)
+    y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = load_library().upfirdn2d_launch(
             x.data_ptr(), y.data_ptr(),
-            taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), kh, kw,
-            n * c, h, w, oh, ow, up, down, padx0, pady0, _DTYPE_CODES[x.dtype],
+            taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), *args,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error("upfirdn2d", err)
     launches[counter] += 1
     return y
 
+
+_PLAN_KEYS = ("tiled", "grid_x", "grid_y", "grid_z", "threads", "smem_bytes", "sms",
+              "blocks_per_sm", "images_per_step", "tile_rows", "tile_cols")
+
+
+def upfirdn2d_plan(x: torch.Tensor, f: np.ndarray, up: int, down: int, pad) -> dict:
+    """The launch ``upfirdn2d`` makes for these arguments, without making it
+    (nothing is counted): which kernel, its grid and block, its shared
+    memory, the device's SMs and the blocks resident on one, and the tiled
+    kernel's images per step and output tile (0 for the direct kernel)."""
+    _, args = _fir_args("upfirdn2d_plan", x, f, up, down, pad)
+    info = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(x.device):
+        err = load_library().upfirdn2d_plan(x.data_ptr(), *args, info)
+    _raise_on_error("upfirdn2d_plan", err)
+    return dict(zip(_PLAN_KEYS, info))

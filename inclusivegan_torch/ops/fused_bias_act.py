@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_kernels
+from .cuda_kernels import rounded
 
 
 class _Act(NamedTuple):
@@ -52,11 +53,14 @@ def _bias_lrelu_plain(x, b, axis, alpha, gain):
     shape = [1] * x.ndim
     shape[axis] = -1
     x = x + b.reshape(shape).to(x.dtype)
-    return torch.where(x >= 0, x, x * alpha) * gain
+    return (torch.where(x >= 0, x, x * rounded(alpha, x.dtype))
+            * rounded(gain, x.dtype))
 
 
 def bias_lrelu_grad_plain(y, dy, alpha, gain):
-    """dx = slope(y) * dy: the plain version of the gradient kernel."""
+    """dx = slope(y) * dy: the plain version of the gradient kernel. As in
+    the TPU kernel's tangent, the slope is float32, rounded to ``dy``'s dtype,
+    and multiplies in that dtype."""
     slope = torch.where(y >= 0, gain, gain * alpha).to(dy.dtype)
     return slope * dy
 
@@ -141,9 +145,9 @@ def fused_bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
             shape = [1] * x.ndim
             shape[axis] = -1
             x = x + b.reshape(shape).to(x.dtype)
-        x = spec.fn(x, alpha)
+        x = spec.fn(x, rounded(alpha, x.dtype))
         if gain != 1.0:
-            x = x * gain
+            x = x * rounded(gain, x.dtype)
     if clamp is not None:
         x = torch.clamp(x, -clamp, clamp)
     return x

@@ -122,7 +122,10 @@ class _UpFirDn2d(torch.autograd.Function):
 
 def _upfirdn2d_plain(x, f, up, down, pad, gain):
     """Explicit zero-insert, pad or crop, shift-and-sum FIR with flipped
-    taps, strided downsample (the JAX package's ``impl='ref'``)."""
+    taps, strided downsample (the JAX package's ``impl='ref'``). The sum is
+    float32 whatever the storage type, row-major over the flipped taps and
+    rounded once to the storage type, as the TPU kernel's ``_fir_kernel``
+    and the CUDA kernel sum."""
     padx0, padx1, pady0, pady1 = pad
     n, c, h, w = x.shape
     kh, kw = f.shape
@@ -136,11 +139,12 @@ def _upfirdn2d_plain(x, f, up, down, pad, gain):
           max(-padx0, 0): x.shape[3] - max(-padx1, 0)]
     k = f * gain
     oh, ow = x.shape[2] - kh + 1, x.shape[3] - kw + 1
-    y = torch.zeros((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = torch.zeros((n, c, oh, ow), dtype=acc, device=x.device)
     for i in range(kh):
         for j in range(kw):
-            y = y + x[:, :, i:i + oh, j:j + ow] * float(k[kh - 1 - i, kw - 1 - j])
-    return y[:, :, ::down, ::down]
+            y = y + x[:, :, i:i + oh, j:j + ow].to(acc) * float(k[kh - 1 - i, kw - 1 - j])
+    return y[:, :, ::down, ::down].to(x.dtype)
 
 
 def filter2d(x, f, gain: float = 1.0, impl: str = "cuda") -> torch.Tensor:

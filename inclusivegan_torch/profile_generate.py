@@ -25,7 +25,7 @@ from .snapshot import load_snapshot
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("bias_lrelu_grad kernel", ("bias_lrelu_grad",)),
     ("bias_lrelu kernel", ("bias_lrelu",)),
-    ("upfirdn2d kernel", ("upfirdn2d_kernel",)),
+    ("upfirdn2d kernel", ("upfirdn2d",)),
     ("convolution", ("conv", "xmma", "implicit", "winograd", "fft", "dgrad")),
     ("matrix product", ("gemm", "gemv", "cublas", "cutlass")),
     ("memory copy / set", ("memcpy", "memset")),

@@ -5,6 +5,11 @@ per minibatch, the latents first, then every noise image re-drawn in sorted
 name order. The images are converted to uint8 the same way and returned as
 NHWC; PNGs are written only when an output directory is given.
 
+The command line switches TF32 off for cuDNN's convolutions and for matrix
+products before it loads the network, so that the card computes in float32
+as the JAX package does; ``generate_images`` itself leaves the global flags
+as the caller set them.
+
     python -m inclusivegan_torch.run_generator generate-images \
         --network artifacts/celeba_best_weights_fp16.pkl --num-images 8 \
         [--result-dir DIR] [--minibatch-size 4] [--truncation-psi 0.6] \
@@ -66,7 +71,9 @@ def main(argv=None):
         description="StyleGAN2 generator (PyTorch/CUDA port).")
     subparsers = parser.add_subparsers(help="Sub-commands", dest="command",
                                        required=True)
-    p = subparsers.add_parser("generate-images", help="Generate images")
+    p = subparsers.add_parser(
+        "generate-images", help="Generate images (float32, TF32 off for "
+        "convolutions and matrix products)")
     p.add_argument("--network", dest="network", required=True)
     p.add_argument("--result-dir", dest="out_dir", default="generation",
                    metavar="DIR")
@@ -76,6 +83,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = vars(parser.parse_args(argv))
     args.pop("command")
+    # float32 as in the JAX package: torch's default lets cuDNN convolve in TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     images = generate_images(**args)
     print(f"Wrote {len(images)} images to {args['out_dir']}")
 

@@ -102,3 +102,24 @@ def test_generator_output_to_uint8_matches_jax_cli(scale):
     np.testing.assert_array_equal(
         utils.generator_output_to_uint8(torch.from_numpy(x)).numpy(),
         np.asarray(want))
+
+
+def test_cli_switches_tf32_off(monkeypatch, tmp_path):
+    """The command line runs float32 as the JAX package does: TF32 off for
+    cuDNN's convolutions and for matrix products, before the network loads.
+    ``generate_images`` itself leaves the flags alone."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = {}
+
+    def fake_generate_images(network, **kwargs):
+        seen["flags"] = (torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32)
+        return np.zeros((1, 4, 4, 3), np.uint8)
+
+    monkeypatch.setattr(run_generator, "generate_images", fake_generate_images)
+    run_generator.main(["generate-images", "--network", "unused.pkl",
+                        "--num-images", "1", "--result-dir", str(tmp_path)])
+    assert seen["flags"] == (False, False)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

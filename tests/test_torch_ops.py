@@ -266,3 +266,169 @@ def test_the_backward_functions_are_on_the_tape():
             names.add(type(fn).__name__)
             stack += [f for f, _ in fn.next_functions]
     assert {"_BiasLreluGradBackward", "_UpFirDn2dBackward"} <= names, names
+
+
+# --- float16 and bfloat16: exact equality with the JAX package -------------
+#
+# The JAX package computes each op in the storage dtype (bias + lrelu rounds
+# after the sum and after each product, with alpha and gain rounded to the
+# dtype first) and the FIR in float32, rounded once. The port's plain
+# versions do the same, so every value agrees exactly: against the jnp forms
+# and against the Pallas kernels, interpreted on the CPU as tests/test_ops.py
+# runs them. In float32 the FIR is held exactly to the JAX ``ref`` form
+# (XLA contracts the interpreted kernel's and the conv form's sums into
+# FMAs, which the 16-bit roundings hide).
+
+DTYPES_16 = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+             "float16": (jnp.float16, torch.float16)}
+SHAPES_16 = [(4, 32, 16, 16), (2, 8, 17, 17)]
+
+
+def _both(a, dtype):
+    """numpy float32 ``a`` as a JAX array and a torch tensor of one dtype."""
+    jdt, tdt = {**DTYPES_16, "float32": (jnp.float32, torch.float32)}[dtype]
+    return jnp.asarray(a).astype(jdt), _t(a).to(tdt)
+
+
+def _assert_same(port, jax_value):
+    got = port.float().numpy()
+    want = np.asarray(jnp.asarray(jax_value, jnp.float32))
+    assert got.shape == want.shape
+    differ = np.mean(got != want)
+    assert differ == 0.0, (f"{differ:.2%} of values differ, largest by "
+                           f"{np.abs(got - want).max():.3g}")
+
+
+@pytest.mark.parametrize("impl", ["jax", "pallas"])
+@pytest.mark.parametrize("shape", SHAPES_16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_bias_lrelu_exact_in_every_dtype(dtype, shape, impl):
+    xj, xt = _both(_rand(shape, seed=20), dtype)
+    bj, bt = _both(_rand((shape[1],), seed=21), dtype)
+    _assert_same(tops.fused_bias_act(xt, bt, act="lrelu"),
+                 jops.fused_bias_act(xj, bj, act="lrelu", impl=impl))
+
+
+@pytest.mark.parametrize("shape", SHAPES_16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_bias_lrelu_gradient_exact_against_the_kernels_tangent(dtype, shape):
+    """``bias_lrelu_grad_plain`` against the tangent of the Pallas op's
+    custom_jvp (``pallas_kernels.py::_bias_act_jvp``: the slope rounded to the
+    dtype, one rounded product), and the port's autograd dx against
+    jax.grad through that op."""
+    from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    from inclusivegan_tpu.ops.pallas_kernels import bias_act_lrelu_pallas
+    xj, xt = _both(_rand(shape, seed=22), dtype)
+    bj, bt = _both(_rand((shape[1],), seed=23), dtype)
+    dj, dt = _both(_rand(shape, seed=24), dtype)
+    y_jax, tangent = jax.jvp(lambda v: bias_act_lrelu_pallas(v, bj), (xj,), (dj,))
+    y = tops.fused_bias_act(xt, bt, act="lrelu")
+    _assert_same(y, y_jax)
+    _assert_same(bias_lrelu_grad_plain(y, dt, 0.2, float(np.sqrt(2))), tangent)
+    g_jax = jax.grad(lambda v: jnp.sum(
+        (bias_act_lrelu_pallas(v, bj) * dj).astype(jnp.float32)))(xj)
+    xg = xt.clone().requires_grad_()
+    (g,) = torch.autograd.grad(tops.fused_bias_act(xg, bt, act="lrelu"), xg, dt)
+    _assert_same(g, g_jax)
+
+
+FIR_CASES = {
+    "upsample2d": lambda m, x, impl: m.upsample2d(x, RK, **impl),
+    "downsample2d": lambda m, x, impl: m.downsample2d(x, RK, **impl),
+    "up2_crop": lambda m, x, impl: m.upfirdn2d(x, m.setup_filter(RK), up=2,
+                                               pad=(1, -1, 2, 0), **impl),
+    "conv_fir_pad2": lambda m, x, impl: m.upfirdn2d(x, m.setup_filter(RK), pad=2,
+                                                    gain=4.0, **impl),
+}
+
+
+@pytest.mark.parametrize("shape", SHAPES_16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", sorted(FIR_CASES))
+def test_fir_exact_in_every_dtype(case, dtype, shape):
+    """The FIR sums in float32 and rounds once, as ``_fir_kernel`` does:
+    in 16 bits against the interpreted Pallas kernel and the conv form, in
+    float32 against the ``ref`` form."""
+    fn = FIR_CASES[case]
+    xj, xt = _both(_rand(shape, seed=25), dtype)
+    y = fn(tops, xt, {})
+    for impl in (("pallas", "conv") if dtype != "float32" else ("ref",)):
+        _assert_same(y, fn(jops, xj, dict(impl=impl)))
+
+
+def _conv_resample(name, dtype, shape, k, impl):
+    xj, xt = _both(_rand(shape, seed=26), dtype)
+    wj, _ = _both(_rand((k, k, shape[1], 5), seed=27), dtype)
+    wt = _oihw(np.asarray(_rand((k, k, shape[1], 5), seed=27))).to(xt.dtype)
+    return (getattr(tops, name)(xt, wt, RK, factor=2),
+            getattr(jops, name)(xj, wj, RK, factor=2, impl=impl))
+
+
+@pytest.mark.parametrize("shape", SHAPES_16)
+@pytest.mark.parametrize("dtype,name,k", [
+    ("bfloat16", "upsample_conv2d", 1), ("bfloat16", "upsample_conv2d", 3),
+    ("bfloat16", "conv_downsample2d", 1), ("bfloat16", "conv_downsample2d", 3),
+    ("float16", "upsample_conv2d", 1), ("float16", "conv_downsample2d", 1),
+])
+def test_conv_resample_exact_in_16_bits(dtype, name, k, shape):
+    """The FIR with the convolution around it, as G and D call it."""
+    for impl in ("pallas", "conv"):
+        _assert_same(*_conv_resample(name, dtype, shape, k, impl))
+
+
+@pytest.mark.parametrize("shape", SHAPES_16)
+@pytest.mark.parametrize("name", ["upsample_conv2d", "conv_downsample2d"])
+def test_conv_resample_float16_3x3(name, shape):
+    """float16, 3x3 weights: torch's and XLA's CPU convolutions both sum in
+    float32 and round once to float16, but in other orders, so about 0.1% of
+    the convolution's outputs differ by one unit in the last place (and the
+    FIR after a transposed convolution spreads each to its neighbours). The
+    FIR itself is held exactly, on the convolution's own output or input:
+    the port's op equals the JAX package's FIR (interpreted Pallas kernel)
+    composed with the port's convolution."""
+    y, y_jax = _conv_resample(name, "float16", shape, 3, "pallas")
+    got, want = y.float().numpy(), np.asarray(jnp.asarray(y_jax, jnp.float32))
+    assert np.mean(got != want) < 0.01
+    np.testing.assert_array_less(np.abs(got - want), 1e-2 * np.abs(want).max())
+    _, xt = _both(_rand(shape, seed=26), "float16")
+    wt = _oihw(np.asarray(_rand((3, 3, shape[1], 5), seed=27))).to(torch.float16)
+    F = torch.nn.functional
+    if name == "upsample_conv2d":
+        conv = F.conv_transpose2d(xt, wt.transpose(0, 1), stride=2)
+        f = jops.setup_filter(RK, gain=4.0)
+        p = f.shape[0] - 2 - 2
+        fir = jops.upfirdn2d(jnp.asarray(conv.float().numpy()).astype(jnp.float16), f,
+                             pad=((p + 1) // 2 + 1, p // 2 + 1, (p + 1) // 2 + 1, p // 2 + 1),
+                             impl="pallas")
+        _assert_same(y, fir)
+    else:
+        f = jops.setup_filter(RK)
+        p = f.shape[0] - 2 + 2
+        fir = jops.upfirdn2d(jnp.asarray(xt.float().numpy()).astype(jnp.float16), f,
+                             pad=((p + 1) // 2, p // 2, (p + 1) // 2, p // 2), impl="pallas")
+        conv = F.conv2d(_t(np.asarray(jnp.asarray(fir, jnp.float32))).half(),
+                        wt, stride=2)
+        _assert_same(y, conv.float().numpy())
+
+
+def test_fir_plan_refuses_a_cpu_tensor_without_building():
+    x = _t(_rand((1, 2, 4, 4)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_kernels.upfirdn2d_plan(x, tops.setup_filter(RK), 2, 1, (2, 1, 2, 1))
+    assert cuda_kernels._lib is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_scalars_match_the_plain_versions(dtype):
+    """The host scalars the bias kernels take (cached per value and dtype)
+    are the ones the plain versions multiply by."""
+    from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    alpha, gain = 0.2, float(np.sqrt(2))
+    y = torch.tensor([1.0, -1.0], dtype=dtype)
+    slopes = bias_lrelu_grad_plain(y, torch.ones(2, dtype=dtype), alpha, gain)
+    assert cuda_kernels._slopes(alpha, gain, dtype) == tuple(slopes.tolist())
+    x = torch.tensor([-1.0, 1.0], dtype=dtype)
+    a, g = (torch.tensor(cuda_kernels.rounded(v, dtype), dtype=dtype) for v in (alpha, gain))
+    y = tops.fused_bias_act(x, torch.zeros(2, dtype=dtype), axis=0, act="lrelu",
+                            alpha=alpha, gain=gain)
+    assert y.tolist() == [float(x[0] * a * g), float(g)]
