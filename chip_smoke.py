@@ -50,22 +50,48 @@ Phases, each logged with the seconds since start:
      with (launches, ms, bound, cuDNN's depthwise convolution) and
      sum(launches * (ms - bound)); seconds per phase of an iteration with
      and without the regularizers, kernels and plain versions in turns; the
-     IMLE rebuild.
-The build must take under 60 s, phases 3-6 under 180 s and phases 7-11
-under 300 s; a run over any budget fails. Any failure raises and the script
+     IMLE rebuild;
+ 12. the training loop, in a temporary directory that is deleted after: a
+     128 px TFRecord dataset of 60 seeded images with 40 labels, written by
+     the port's exporter; ``python -m inclusivegan_torch.run_training`` with
+     the CelebA run's flags at float32 from scratch for 4 iterations (exit
+     0, finite losses, ``network-final.pkl``); then twice, through
+     ``submit_run`` with the loop arguments the command line builds, 24
+     iterations resumed from the CelebA snapshot at its stored float16 (3
+     ticks, IMLE rebuilds at iterations 0 and 20, image snapshots every
+     tick, network snapshots and checkpoints every 2), with the launch
+     counts set to 0 just before and read just after: every kernel
+     launched, the run dir's files, G and D still float16, and
+     ``network-final.pkl`` read back drawing the in-memory Gs's images
+     exactly; after the first of them, both forward kernels at every
+     configuration its IMLE rebuilds launched them with (candidates padded
+     to the batch of 1024, tensors over 2**31 elements) against their plain
+     versions, exactly; then 8 iterations resumed from the last checkpoint
+     (step, Adam count and IMLE counters go on from it); from the loop's
+     own Timing/* stats, sec/kimg and kimg/h per tick, the iterations alone
+     (the ticks' synchronized seconds less the rebuilds, snapshots and
+     checkpoints in them), each rebuild, snapshot and checkpoint; and the
+     card's peak memory.
+The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
+300 s and phase 12 under 240 s; a run over any budget fails. Any failure raises and the script
 exits non-zero. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
+import gc
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +149,25 @@ TRAIN_GRAD_REL_L2 = 1e-3
 # algorithms, float32 sums in other orders, full-width networks).
 GOLDEN_SCALAR_RTOL = 1e-3
 GOLDEN_NORM_RTOL = 1e-2
+
+# Phase 12, the training loop, with the flags of
+# scripts/run_celeba_quality_loop.sh:49-54 at float32 (its --dtype bfloat16
+# is not ported yet), on DATA_SIZE synthetic 128 px images with the CelebA
+# snapshot's 40 attribute labels: 600 candidates and a few dozen iterations
+# instead of 300k and 25000 kimg; the width is not cut.
+LOOP_BUDGET_S = 240
+LOOP_DATASET = "celeba_synth"
+LOOP_LABELS = 40
+CLI_FLAGS = ["--config", "config-e-Gskip-Dresnet", "--num-gpus", "1",
+             "--minibatch-gpu", str(TRAIN_MB), "--mirror-augment", "true",
+             "--init-proj-dim", "512", "--candidate-batch-size", "1024",
+             "--num-samples-factor", "10", "--lpips-weights", LPIPS_WEIGHTS,
+             "--data-size", str(DATA_SIZE), "--metrics", "none"]
+CLI_ITERS = 4  # the command line from scratch
+LOOP_TICK_KIMG = 0.048  # resumed runs: a tick every 8 iterations of 6 images,
+LOOP_TOTAL_KIMG = 0.144  # 24 iterations, 3 ticks;
+LOOP_INIT_STALENESS = 2  # rebuilds at iterations 0 and 20, the staleness doubles
+LOOP_RESUME_ITERS = 8  # then from the last checkpoint
 
 
 def log(msg: str) -> None:
@@ -762,6 +807,401 @@ def training_slice(np, torch, ck, gen):
     return records, main_launches, errs
 
 
+def write_loop_dataset(np, data_dir, res):
+    """DATA_SIZE seeded uint8 images at ``res`` px with LOOP_LABELS binary
+    attributes, written by the port's exporter as LOOP_DATASET."""
+    from inclusivegan_torch.data.dataset_tool import TFRecordExporter
+    rng = np.random.default_rng(12)
+    with TFRecordExporter(os.path.join(data_dir, LOOP_DATASET), DATA_SIZE,
+                          print_progress=False) as tfr:
+        for _ in range(DATA_SIZE):
+            tfr.add_image(rng.integers(0, 256, (3, res, res), dtype=np.uint8))
+        tfr.add_labels(rng.integers(0, 2, (DATA_SIZE, LOOP_LABELS)).astype(np.float32))
+    return sorted(os.listdir(os.path.join(data_dir, LOOP_DATASET)))
+
+
+def read_stats(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_kwargs(data_dir, result_dir, extra_flags):
+    """The loop's keyword arguments as the command line builds them
+    (``run_training.parse_args`` and ``run``), without submitting."""
+    from inclusivegan_torch import run_training
+    seen = {}
+    argv = ["--data-dir", data_dir, "--dataset", LOOP_DATASET, "--result-dir",
+            result_dir] + CLI_FLAGS + extra_flags
+    with mock.patch.object(run_training, "submit_run",
+                           lambda sc, fn, **kw: seen.update(sc=sc, fn=fn, kw=kw)):
+        run_training.run(**run_training.parse_args(argv))
+    return seen["sc"], seen["fn"], seen["kw"]
+
+
+def run_loop(torch, ck, sc, fn, kw):
+    """One in-process run of the loop through ``submit_run``, its launch
+    counts set to 0 just before and read just after. The loop times its
+    ticks, rebuilds, snapshots and checkpoints itself (``Timing/*`` in
+    stats.jsonl); two hooks add the time of each ``train_step`` call and,
+    around each IMLE rebuild, the (cursor, staleness) it starts from, the
+    card's peak allocation before and after, and the arguments of its kernel
+    launches. Returns (state, run dir, launches, seconds from the start to
+    the first and to the last step, the rebuilds' counters, their
+    recorders)."""
+    from inclusivegan_torch.ops.bench import Recorder
+    from inclusivegan_torch.training import training_loop as tloop
+    from inclusivegan_torch.utils.run_harness import submit_run
+    step_times = []
+    rebuild_from, rebuild_peaks, rebuild_recs = [], [], []
+    make_step = tloop.make_train_step
+
+    def make_timed_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def call(*sa, **sk):
+            step_times.append(time.perf_counter())
+            return step(*sa, **sk)
+        return call
+
+    class Recording(tloop.IMLEOrchestrator):
+        def rebuild(self, *a, **k):
+            rebuild_from.append((self.cursor, self.staleness))
+            torch.cuda.synchronize()
+            peak_before = torch.cuda.max_memory_allocated()
+            with Recorder(ck) as rec:
+                super().rebuild(*a, **k)
+            torch.cuda.synchronize()
+            rebuild_recs.append(rec)
+            rebuild_peaks.append((peak_before, torch.cuda.max_memory_allocated()))
+
+    with mock.patch.object(tloop, "IMLEOrchestrator", Recording), \
+            mock.patch.object(tloop, "make_train_step", make_timed_step):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t_start = time.perf_counter()
+        # the run's own output goes to its log.txt; its tick lines are shown
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = submit_run(sc, fn, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ck.launches)
+    (run_dir,) = [os.path.join(sc.run_dir_root, d) for d in os.listdir(sc.run_dir_root)]
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        for line in f:
+            if line.startswith("tick "):
+                log(line.rstrip())
+    log("peak allocated before and after each rebuild: " + ", ".join(
+        f"{a / 2 ** 30:.3f} -> {b / 2 ** 30:.3f} GB" for a, b in rebuild_peaks)
+        + f"; at the end of the run {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GB")
+    steps = (step_times[0] - t_start, step_times[-1] - t_start)
+    return state, run_dir, launches, steps, rebuild_from, rebuild_recs
+
+
+# The plain versions of the rebuild's kernel launches run this many images
+# at a time (below).
+REBUILD_CHECK_CHUNK = 128
+
+
+def check_rebuild_kernels(np, torch, ck, recs):
+    """Every configuration that the loop's IMLE rebuilds launched the forward
+    kernels with, in the dtype they gave it: the candidates padded to the
+    candidate batch of 1024, as the loop pads them, so that at 128 px a
+    tensor holds more than 2**31 elements. Kernel against plain version on
+    the same card inputs, exactly. The kernel takes the whole batch; the
+    plain version, which computes each image on its own, takes
+    REBUILD_CHECK_CHUNK images at a time, since its intermediates for the
+    whole batch would not fit beside the kernel's. Returns the largest
+    float32 error of each kernel."""
+    from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
+    gen = torch.Generator("cuda").manual_seed(21)
+    bs = IMLE_CONFIG["candidate_batch_size"]
+    errs = {"bias_lrelu": 0.0, "upfirdn2d": 0.0}
+    n_configs = n_large = 0
+    for name in errs:
+        configs = list(dict.fromkeys(c for r in recs for c in r.calls[name]))
+        dtypes = sorted({d for r in recs for d in r.dtypes[name]}, key=str)
+        for (shape, key), dtype in ((c, d) for c in configs for d in dtypes):
+            if shape[0] != bs:
+                raise RuntimeError(f"the rebuild launched {name} at {shape}, not at "
+                                   f"its candidate batch of {bs}")
+            x = torch.randn(shape, device="cuda", generator=gen, dtype=dtype)
+            with torch.no_grad():
+                if name == "bias_lrelu":
+                    axis, alpha, gain = key
+                    if axis == 0:
+                        raise RuntimeError("a bias along the batch cannot be chunked")
+                    b = torch.randn(shape[axis], device="cuda", generator=gen,
+                                    dtype=dtype)
+                    what = f"bias_lrelu axis {axis}"
+                    yk = ck.bias_lrelu(x, b, axis, alpha, gain)
+                else:
+                    f, up, down, pad, gain = key[:5]
+                    f = np.asarray(f, np.float32)
+                    what = f"upfirdn2d up {up} down {down} pad {pad}"
+                    yk = ck.upfirdn2d(x, f, up, down, pad, gain)
+                err = 0.0
+                for i in range(0, bs, REBUILD_CHECK_CHUNK):
+                    xs = x[i:i + REBUILD_CHECK_CHUNK]
+                    if name == "bias_lrelu":
+                        yp = fused_bias_act(xs, b, axis=axis, act="lrelu", alpha=alpha,
+                                            gain=gain, impl="plain")
+                    else:
+                        yp = upfirdn2d(xs, f, up=up, down=down, pad=pad, gain=gain,
+                                       impl="plain")
+                    yc = yk[i:i + REBUILD_CHECK_CHUNK]
+                    if yp.shape != yc.shape or yp.dtype != yc.dtype:
+                        raise RuntimeError(f"{what} at {shape}: kernel {yc.shape} "
+                                           f"{yc.dtype}, plain {yp.shape} {yp.dtype}")
+                    if not torch.equal(yc, yp):
+                        err = max(err, (yc.float() - yp.float()).abs().max().item())
+                    del yp, yc
+            n = math.prod(shape)
+            n_configs += 1
+            n_large += n >= 2 ** 31
+            log(f"rebuild {what} {str(dtype)[6:]} {shape} ({n} elements): max abs err "
+                f"{err:.3e} (exact) {'ok' if err == 0 else 'FAIL'}")
+            if err != 0:
+                raise RuntimeError(f"{what} disagrees with its plain version at {shape}")
+            if dtype == torch.float32:
+                errs[name] = max(errs[name], err)
+            del x, yk
+    log(f"the rebuild's {n_configs} kernel configurations agree exactly with the plain "
+        f"versions, {n_large} of them over 2**31 elements")
+    if n_large == 0:
+        raise RuntimeError("the rebuild launched no kernel over 2**31 elements")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def training_loop_phase(np, torch, ck):
+    """Phase 12. Returns the kernels' launch counts of the loop's main path
+    (the first resumed run through submit_run) and the largest float32
+    error of each forward kernel at its rebuild's configurations."""
+    from inclusivegan_torch.snapshot import read_snapshot
+    from inclusivegan_torch.training.checkpoint import STATE_FILE, latest_checkpoint
+
+    phase("12 the training loop: the CLI from scratch, resume from the CelebA "
+          "snapshot (twice), resume from a checkpoint")
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = 128
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        t = time.time()
+        files = write_loop_dataset(np, data_dir, res)
+        log(f"wrote {DATA_SIZE} images at {res} px with {LOOP_LABELS} labels in "
+            f"{time.time() - t:.1f} s: {files}")
+
+        # 12.1 the command line, from scratch (fresh init at full width)
+        cli_root = os.path.join(tmp, "cli")
+        argv = [sys.executable, "-m", "inclusivegan_torch.run_training",
+                "--data-dir", data_dir, "--dataset", LOOP_DATASET, "--result-dir",
+                cli_root] + CLI_FLAGS + ["--smoke-test-max-iters", str(CLI_ITERS)]
+        log("$ " + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
+                            for a in argv[1:]))
+        t = time.time()
+        proc = subprocess.run(argv, cwd=HERE, capture_output=True, text=True,
+                              timeout=LOOP_BUDGET_S)
+        cli_s = time.time() - t
+        tail = (proc.stdout + proc.stderr)[-3000:]
+        if proc.returncode != 0:
+            print(tail, flush=True)
+            raise RuntimeError(f"run_training exited {proc.returncode}")
+        (cli_run,) = [os.path.join(cli_root, d) for d in os.listdir(cli_root)]
+        stats = read_stats(os.path.join(cli_run, "stats.jsonl"))
+        losses = {k: v for rec in stats for k, v in rec.items() if k.startswith("Loss/")}
+        log(f"CLI from scratch, {CLI_ITERS} iterations: exit 0 in {cli_s:.1f} s; "
+            + ", ".join(f"{k[5:]} {v:.5g}" for k, v in sorted(losses.items())))
+        if len(losses) != 11 or not all(math.isfinite(v) for v in losses.values()):
+            raise RuntimeError(f"the CLI run's loss scalars: {losses}")
+        for name in ("network-final.pkl", "arb-reals.png", "log.txt", "_finished.txt"):
+            if not os.path.isfile(os.path.join(cli_run, name)):
+                raise RuntimeError(f"the CLI run wrote no {name}")
+        g = read_snapshot(os.path.join(cli_run, "network-final.pkl"))["G"]
+        log(f"CLI run dir {os.path.basename(cli_run)}: G "
+            f"{g['config']['synthesis']['resolution']} px, "
+            f"{sum(v.size for v in _leaves(g['params']))} G values "
+            f"({next(iter(_leaves(g['params']))).dtype})")
+        del g
+
+        # 12.2 resume from the CelebA snapshot at its stored float16, through
+        # submit_run with the loop arguments the command line builds; twice
+        runs = []
+        for rep in range(2):
+            sc, fn, kw = loop_kwargs(
+                data_dir, os.path.join(tmp, f"resume{rep}"),
+                ["--resume-pkl", NETWORK, "--init-staleness", str(LOOP_INIT_STALENESS),
+                 "--image-snapshot-ticks", "1", "--network-snapshot-ticks", "2"])
+            kw = dict(kw, total_kimg=LOOP_TOTAL_KIMG,
+                      sched_args=dict(kw["sched_args"], tick_kimg_base=LOOP_TICK_KIMG))
+            t = time.time()
+            state, run_dir, launches, steps, rebuild_from, recs = run_loop(torch, ck,
+                                                                           sc, fn, kw)
+            wall = time.time() - t
+            runs.append(run_dir)
+            check_resumed_run(torch, state, run_dir, launches, rebuild_from)
+            report_run(f"resume run {rep + 1}", run_dir, wall, steps, launches,
+                       len(rebuild_from))
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rep == 0:
+                loop_launches = launches
+                loop_errs = check_rebuild_kernels(np, torch, ck, recs)
+            del recs
+
+        # 12.3 resume from run 2's last checkpoint for LOOP_RESUME_ITERS iterations
+        ck_dir = latest_checkpoint(os.path.join(runs[-1], "checkpoints"))
+        saved = torch.load(os.path.join(ck_dir, STATE_FILE), weights_only=True)
+        sc, fn, kw = loop_kwargs(data_dir, os.path.join(tmp, "ckpt"),
+                                 ["--resume-checkpoint", runs[-1],
+                                  "--image-snapshot-ticks", "1",
+                                  "--network-snapshot-ticks", "2"])
+        kw = dict(kw, total_kimg=LOOP_TOTAL_KIMG + LOOP_RESUME_ITERS * TRAIN_MB / 1000,
+                  sched_args=dict(kw["sched_args"], tick_kimg_base=LOOP_TICK_KIMG))
+        t = time.time()
+        state, run_dir, launches, steps, rebuild_from, _recs = run_loop(torch, ck, sc,
+                                                                        fn, kw)
+        wall = time.time() - t
+        ck_step, ck_count = int(saved["state"]["step"]), int(saved["state"]["g_opt"]["count"])
+        g_regs = len(range(0, LOOP_RESUME_ITERS, TRAIN_CONFIG["G_reg_interval"]))
+        got = (int(state.step), int(state.g_opt.count), rebuild_from[0])
+        want = (ck_step + LOOP_RESUME_ITERS, ck_count + LOOP_RESUME_ITERS + g_regs,
+                (saved["imle"]["cursor"], saved["imle"]["staleness"]))
+        log(f"resume from {os.path.relpath(ck_dir, tmp)}: step, g_opt.count and the "
+            f"IMLE (cursor, staleness) at the first rebuild {got}, expected {want}")
+        if got != want:
+            raise RuntimeError("the checkpoint resume did not go on from the checkpoint")
+        report_run("checkpoint resume", run_dir, wall, steps, launches,
+                   len(rebuild_from))
+        del state
+        log(f"device memory: peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GB, peak reserved "
+            f"{torch.cuda.max_memory_reserved() / 2 ** 30:.3f} GB (phase 12, this process)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loop_s = time.time() - t_phase
+    log(f"phase 12 took {loop_s:.1f} s (budget {LOOP_BUDGET_S} s)")
+    if loop_s >= LOOP_BUDGET_S:
+        raise RuntimeError(f"phase 12 took {loop_s:.1f} s, over its {LOOP_BUDGET_S} s "
+                           "budget")
+    return loop_launches, loop_errs
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def check_resumed_run(torch, state, run_dir, launches, rebuild_from):
+    """The resumed run's kernels, files, staleness, dtypes and snapshot."""
+    from inclusivegan_torch.snapshot import load_snapshot, read_snapshot
+    from inclusivegan_torch.training.train_state import g_trainables, params_of
+    log(f"launches during the loop {launches}")
+    if not all(launches[k] > 0 for k in KERNELS):
+        raise RuntimeError(f"a kernel was not launched in the loop: {launches}")
+    n_iters = round(LOOP_TOTAL_KIMG * 1000 / TRAIN_MB)
+    expected = {"log.txt", "run.txt", "submit_config.pkl", "submit_config.txt",
+                "_finished.txt", "stats.jsonl", "arb-reals.png", "rec-reals.png",
+                "arb-fakes-000000.png", "rec-fakes-000000.png",
+                "network-snapshot-000000.pkl", "network-final.pkl", "checkpoints",
+                f"random_projector_mat_{3 * 128 * 128}to512.npy"}
+    names = set(os.listdir(run_dir))
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    n_ticks = round(LOOP_TOTAL_KIMG / LOOP_TICK_KIMG)
+    want_ckpts = [f"step_{int(round(t * LOOP_TICK_KIMG * 1000)):08d}"
+                  for t in range(1, n_ticks + 1) if (t - 1) % 2 == 0 or t == n_ticks]
+    if not expected <= names or not any(n.startswith("events.out") for n in names) \
+            or ckpts != want_ckpts:
+        raise RuntimeError(f"run dir: missing {sorted(expected - names)}, checkpoints "
+                           f"{ckpts} (expected {want_ckpts})")
+    if int(state.step) != n_iters:
+        raise RuntimeError(f"{int(state.step)} steps, expected {n_iters}")
+    if [s for _, s in rebuild_from] != [LOOP_INIT_STALENESS, LOOP_INIT_STALENESS]:
+        raise RuntimeError(f"rebuilds started from (cursor, staleness) {rebuild_from}")
+    # G and D keep the snapshot's float16; the Gs EMA is float32, as in JAX
+    dtypes = {str(v.dtype) for v in g_trainables(params_of(state.G)).values()} | {
+        str(p.dtype) for p in state.D.parameters()}
+    final = os.path.join(run_dir, "network-final.pkl")
+    snap = read_snapshot(final)
+    trainable = {k: v for k, v in snap["G"]["params"].items()
+                 if k not in ("noise", "dlatent_avg")}
+    stored = {str(v.dtype) for tree in (trainable, snap["D"]["params"])
+              for v in _leaves(tree)}
+    log(f"after {n_iters} iterations: G and D trainables {dtypes}, in network-final.pkl "
+        f"{stored}; rebuilds from (cursor, staleness) {rebuild_from}")
+    if dtypes != {"torch.float16"} or stored != {"float16"}:
+        raise RuntimeError("G or D left float16")
+    # network-final.pkl's Gs, read back by the port, draws the in-memory Gs's
+    # images exactly, under deterministic algorithms (cuDNN's transposed
+    # convolution may otherwise sum in another order from call to call)
+    Gs = load_snapshot(final, device="cuda")
+    z = torch.randn(4, Gs.mapping.latent_size, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            a = state.Gs(z, randomize_noise=False)
+            b = Gs(z, randomize_noise=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    diff = (a - b).abs().max().item()
+    log(f"network-final.pkl's Gs against the in-memory Gs, 4 images: max |diff| {diff}")
+    if not torch.equal(a, b):
+        raise RuntimeError("network-final.pkl does not hold the trained Gs")
+
+
+def report_run(label, run_dir, wall, steps, launches, n_rebuilds):
+    """sec/kimg and kimg/h per tick, as the loop reads them; then the
+    iterations alone: the ticks' seconds (the card synchronized at the end of
+    each) less the rebuilds, image and network snapshots and checkpoints that
+    ran inside them, over the ticks' images."""
+    stats = read_stats(os.path.join(run_dir, "stats.jsonl"))
+    ticks = [r for r in stats if "Timing/sec_per_tick" in r]
+    n_ckpts = len(os.listdir(os.path.join(run_dir, "checkpoints")))
+    # Each event reports its seconds into the first flush after it, which
+    # falls in the tick it ran in; a flush keeps the mean of its events, so
+    # the sums below hold only with one event of a kind per flush. Phase 12
+    # snapshots images every tick and networks with each checkpoint.
+    n_events = {"dci_rebuild": n_rebuilds, "image_snapshot": len(ticks),
+                "snapshot": n_ckpts, "checkpoint": n_ckpts}
+    for kind, n in n_events.items():
+        got = sum(f"Timing/{kind}_sec" in r for r in stats)
+        if got != n:
+            raise RuntimeError(f"{label}: Timing/{kind}_sec in {got} flushes of "
+                               f"stats.jsonl, for {n} events")
+    net_s = images = 0
+    for r in ticks:
+        spt, spk = r["Timing/sec_per_tick"], r["Timing/sec_per_kimg"]
+        n_img = round(1000 * spt / spk)
+        inside = {kind: r[f"Timing/{kind}_sec"] for kind in n_events
+                  if f"Timing/{kind}_sec" in r}
+        net = spt - sum(inside.values())
+        net_s += net
+        images += n_img
+        log(f"{label} tick at {r['_step']} images: {spk:.2f} sec/kimg = "
+            f"{3600 / spk:.2f} kimg/h ({spt:.3f} s for {n_img} images; in it "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in inside.items())
+            + f"; without them {1000 * net / n_img:.2f} sec/kimg); peak allocated "
+            f"{r.get('Resources/peak_device_mem_gb', float('nan')):.3f} GB")
+    iters = images / TRAIN_MB
+    log(f"{label}: the iterations alone, {images} images in {iters:.0f} iterations "
+        f"in {net_s:.3f} s of ticks: {net_s / iters:.4f} s per iteration, "
+        f"{1000 * net_s / images:.2f} sec/kimg = {3.6 * images / net_s:.2f} kimg/h")
+    for kind in n_events:
+        key = f"Timing/{kind}_sec"
+        log(f"{label}: {key} " + ", ".join(f"{r[key]:.3f}" for r in stats if key in r))
+    log(f"{label}: {wall:.1f} s in all, {steps[0]:.1f} s of it before the first step "
+        f"(networks, LPIPS, grids, the first rebuild) and {steps[1] - steps[0]:.1f} s "
+        f"from the first step to the last, host clock; launches {launches}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -971,6 +1411,13 @@ def main() -> int:
     if train_s >= TRAIN_BUDGET_S:
         raise RuntimeError(f"phases 7-11 took {train_s:.1f} s, over their "
                            f"{TRAIN_BUDGET_S} s budget")
+
+    gc.collect()
+    loop_launches, loop_errs = training_loop_phase(np, torch, ck)
+    for r in records:
+        r["launches_by_path"] = dict(r.get("launches_by_path", {}),
+                                     training_loop=loop_launches[r["name"]])
+        r["max_abs_err"] = max(r["max_abs_err"], loop_errs.get(r["name"], 0.0))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

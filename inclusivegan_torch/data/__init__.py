@@ -1,1 +1,2 @@
-"""Datasets of the port."""
+"""Datasets of the port: the TFRecord reader and writer, the synthetic set
+and the prefetcher."""

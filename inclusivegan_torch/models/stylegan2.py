@@ -17,6 +17,14 @@ knob is not ported yet). Scalings of a
 parameter by a Python constant round in the parameter's dtype, as JAX's weak
 typing does (``_scale``), so the port computes what the JAX package computes.
 
+Fresh parameters come from ``init(generator)`` of each network, as from the
+JAX package's ``init(rng)``: the same names, shapes and float32 dtype, zeros
+where JAX has zeros and normal draws of the same standard deviation
+(``_init_std``) from an explicit ``torch.Generator`` (JAX's PRNG streams
+cannot be reproduced). ``GMain.create`` builds a generator as the JAX
+package's does, and each network keeps its JAX config as ``config``, which
+``snapshot.snapshot_dict`` writes.
+
 Random draws are explicit: synthesis noise is a dict of tensors (the
 ``noise`` buffers by default, or per-example [B, 1, h, w] draws from
 ``GSynthesis.draw_noise``) or, with ``randomize_noise=True``, comes from the
@@ -49,6 +57,23 @@ def _wcoef(fan_in: int, gain: float = 1.0, use_wscale: bool = True,
     """Equalized-learning-rate runtime coefficient."""
     he_std = gain / math.sqrt(fan_in)
     return he_std * lrmul if use_wscale else lrmul
+
+
+def _init_std(lrmul: float = 1.0, init_mul: float = 1.0) -> float:
+    """Standard deviation of a fresh weight, the JAX package's ``_winit``
+    under equalized learning rates: init_mul / lrmul (the runtime
+    coefficient, ``_wcoef``, carries He's scaling)."""
+    return init_mul / lrmul
+
+
+def _normal_(p: torch.Tensor, generator: torch.Generator, std: float = 1.0) -> None:
+    """Replace ``p``'s values by float32 N(0, std^2) draws from ``generator``."""
+    draw = torch.randn(tuple(p.shape), generator=generator, device=generator.device)
+    p.data = (draw * std).to(p.device)
+
+
+def _zeros_(p: torch.Tensor) -> None:
+    p.data = torch.zeros(tuple(p.shape), dtype=torch.float32, device=p.device)
 
 
 def _scale(t: torch.Tensor, s: float) -> torch.Tensor:
@@ -104,7 +129,7 @@ def _modulated_conv2d(x, style_w, p, *, up=False, down=False, demodulate=True,
 
 def _params(**shapes) -> nn.Module:
     """A module holding one zero parameter per (name, shape); the values come
-    from ``snapshot.gmain_from_params``."""
+    from ``init`` or from a snapshot (``snapshot.gmain_from_params``)."""
     m = nn.Module()
     for name, shape in shapes.items():
         m.register_parameter(name, nn.Parameter(torch.zeros(shape)))
@@ -154,12 +179,28 @@ class GMapping(nn.Module):
         self.mapping_lrmul = mapping_lrmul
         self.mapping_nonlinearity = mapping_nonlinearity
         self.normalize_latents = normalize_latents
+        self.init_mul = init_mul
+        self.config = dict(
+            latent_size=latent_size, label_size=label_size, dlatent_size=dlatent_size,
+            dlatent_broadcast=dlatent_broadcast, mapping_layers=mapping_layers,
+            mapping_fmaps=mapping_fmaps, mapping_lrmul=mapping_lrmul,
+            mapping_nonlinearity=mapping_nonlinearity,
+            normalize_latents=normalize_latents, init_mul=init_mul, dtype="float32")
         in_dim = latent_size
         for i in range(mapping_layers):
             out_dim = dlatent_size if i == mapping_layers - 1 else mapping_fmaps
             self.add_module(f"Dense{i}", _params(weight=(in_dim, out_dim),
                                                  bias=(out_dim,)))
             in_dim = out_dim
+
+    def init(self, generator: torch.Generator) -> "GMapping":
+        """Fresh parameters: weights N(0, (init_mul / lrmul)^2), biases 0."""
+        std = _init_std(lrmul=self.mapping_lrmul, init_mul=self.init_mul)
+        for i in range(self.mapping_layers):
+            p = getattr(self, f"Dense{i}")
+            _normal_(p.weight, generator, std)
+            _zeros_(p.bias)
+        return self
 
     def forward(self, latents, labels=None, impl="cuda"):
         x = latents.float()
@@ -196,6 +237,12 @@ class GSynthesis(nn.Module):
         self.architecture = architecture
         self.nonlinearity = nonlinearity
         self.resample_kernel = list(resample_kernel)
+        self.init_mul = init_mul
+        self.config = dict(
+            dlatent_size=dlatent_size, num_channels=num_channels, resolution=resolution,
+            fmap_base=fmap_base, fmap_decay=fmap_decay, fmap_min=fmap_min,
+            fmap_max=fmap_max, architecture=architecture, nonlinearity=nonlinearity,
+            resample_kernel=tuple(resample_kernel), init_mul=init_mul, dtype="float32")
 
         def n(stage):
             return nf(stage, fmap_base, fmap_decay, fmap_min, fmap_max)
@@ -223,6 +270,28 @@ class GSynthesis(nn.Module):
                 blk.add_module("ToRGB", modconv(1, n(res - 1), num_channels,
                                                 noise=False))
             self.add_module(f"{2 ** res}x{2 ** res}", blk)
+
+    def init(self, generator: torch.Generator) -> "GSynthesis":
+        """Fresh parameters: the const input N(0, 1); conv, modulation and
+        skip weights N(0, init_mul^2); modulation biases, biases and noise
+        strengths 0."""
+        std = _init_std(init_mul=self.init_mul)
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[1]
+            if leaf == "const":
+                _normal_(p, generator)
+            elif leaf in ("weight", "mod_weight"):
+                _normal_(p, generator, std)
+            else:  # mod_bias, bias, noise_strength
+                _zeros_(p)
+        return self
+
+    def init_noise(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Fresh non-trainable noise images, N(0, 1), for
+        ``randomize_noise=False``: {"noise{i}": [1, 1, h, w]} on the
+        generator's device."""
+        return {k: torch.randn(s, generator=generator, device=generator.device)
+                for k, s in self.noise_shapes().items()}
 
     def noise_shapes(self) -> Dict[str, tuple]:
         """Shapes of the per-layer noise images used with
@@ -311,6 +380,54 @@ class GMain(nn.Module):
             noise.register_buffer(name, torch.zeros(shape))
         self.noise = noise
         self.register_buffer("dlatent_avg", torch.zeros(mapping.dlatent_size))
+
+    @property
+    def config(self) -> dict:
+        return dict(mapping=dict(self.mapping.config),
+                    synthesis=dict(self.synthesis.config),
+                    truncation_psi=self.truncation_psi,
+                    truncation_cutoff=self.truncation_cutoff,
+                    dlatent_avg_beta=self.dlatent_avg_beta,
+                    style_mixing_prob=self.style_mixing_prob)
+
+    @staticmethod
+    def create(resolution=128, num_channels=3, latent_size=512,
+               dlatent_size=512, label_size=0, fmap_base=16 << 10,
+               fmap_max=512, architecture="skip", init_mul=1.0,
+               truncation_psi=0.6, truncation_cutoff=None,
+               dlatent_avg_beta=0.995, style_mixing_prob=0.9,
+               mapping_layers=8, mapping_fmaps=512, dtype="float32",
+               **_kwargs) -> "GMain":
+        """The generator of the JAX package's ``GMain.create``, with zero
+        placeholder parameters until ``init`` or a snapshot fills them."""
+        if dtype not in ("float32", torch.float32):
+            raise NotImplementedError(
+                f"GMain dtype={dtype!r}: the bf16 compute knob is not ported yet "
+                "(ROADMAP.md, queue 1 item 2)")
+        synthesis = GSynthesis(dlatent_size=dlatent_size, num_channels=num_channels,
+                               resolution=resolution, fmap_base=fmap_base,
+                               fmap_max=fmap_max, architecture=architecture,
+                               init_mul=init_mul)
+        mapping = GMapping(latent_size=latent_size, label_size=label_size,
+                           dlatent_size=dlatent_size,
+                           dlatent_broadcast=synthesis.num_layers,
+                           mapping_layers=mapping_layers, mapping_fmaps=mapping_fmaps,
+                           init_mul=init_mul)
+        return GMain(mapping, synthesis, truncation_psi=truncation_psi,
+                     truncation_cutoff=truncation_cutoff,
+                     dlatent_avg_beta=dlatent_avg_beta,
+                     style_mixing_prob=style_mixing_prob)
+
+    def init(self, generator: torch.Generator) -> "GMain":
+        """Fresh mapping and synthesis parameters, fresh noise images and a
+        zero ``dlatent_avg``, as the JAX package's ``GMain.init``."""
+        self.mapping.init(generator)
+        self.synthesis.init(generator)
+        for name, v in self.synthesis.init_noise(generator).items():
+            setattr(self.noise, name, v.to(self.dlatent_avg.device))
+        self.dlatent_avg = torch.zeros(self.mapping.dlatent_size,
+                                       device=self.dlatent_avg.device)
+        return self
 
     def draw_mixing(self, batch: int, generator: torch.Generator,
                     style_mixing_prob="default"):
@@ -426,6 +543,14 @@ class Discriminator(nn.Module):
         self.mbstd_num_features = mbstd_num_features
         self.mbstd_contiguous = mbstd_contiguous
         self.resample_kernel = list(resample_kernel)
+        self.init_mul = init_mul
+        self.config = dict(
+            num_channels=num_channels, resolution=resolution, label_size=label_size,
+            fmap_base=fmap_base, fmap_decay=fmap_decay, fmap_min=fmap_min,
+            fmap_max=fmap_max, architecture=architecture, nonlinearity=nonlinearity,
+            mbstd_group_size=mbstd_group_size, mbstd_num_features=mbstd_num_features,
+            mbstd_contiguous=mbstd_contiguous, resample_kernel=tuple(resample_kernel),
+            init_mul=init_mul, dtype="float32")
 
         def n(stage):
             return nf(stage, fmap_base, fmap_decay, fmap_min, fmap_max)
@@ -450,6 +575,17 @@ class Discriminator(nn.Module):
         b4.add_module("Dense0", _params(weight=(n(1) * 16, n(0)), bias=(n(0),)))
         self.add_module("4x4", b4)
         self.add_module("Output", _params(weight=(n(0), 1), bias=(1,)))
+
+    def init(self, generator: torch.Generator) -> "Discriminator":
+        """Fresh parameters: weights N(0, init_mul^2), biases 0, as the JAX
+        package's ``Discriminator.init``."""
+        std = _init_std(init_mul=self.init_mul)
+        for name, p in self.named_parameters():
+            if name.endswith("weight"):
+                _normal_(p, generator, std)
+            else:
+                _zeros_(p)
+        return self
 
     def forward(self, images, labels=None, impl: str = "cuda"):
         """images [B, C, R, R] -> (scores [B], features [B, F]); features

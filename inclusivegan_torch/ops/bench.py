@@ -48,11 +48,13 @@ class Recorder:
     """Records the arguments of every kernel-wrapper call while it is open
     (the wrappers themselves are untouched and still count launches): the
     shape of the input and the arguments that are not tensors, keywords
-    included, with taps as tuples so that calls can be told apart."""
+    included, with taps as tuples so that calls can be told apart; and the
+    input dtypes each wrapper saw."""
 
     def __init__(self, ck, names=("bias_lrelu", "upfirdn2d")):
         self.ck = ck
         self.calls = {name: [] for name in names}
+        self.dtypes = {name: set() for name in names}
 
     def __enter__(self):
         self.orig = {name: getattr(self.ck, name) for name in self.calls}
@@ -65,6 +67,7 @@ class Recorder:
             key = tuple(tuple(map(tuple, a)) if isinstance(a, np.ndarray)
                         else a for a in args if not hasattr(a, "data_ptr"))
             self.calls[name].append((tuple(x.shape), key + tuple(kwargs.values())))
+            self.dtypes[name].add(x.dtype)
             return fn(x, *args, **kwargs)
         return call
 

@@ -3,7 +3,8 @@
 Latents and noise come from ``numpy.random.RandomState(0)`` exactly as there:
 per minibatch, the latents first, then every noise image re-drawn in sorted
 name order. The images are converted to uint8 the same way and returned as
-NHWC; PNGs are written only when an output directory is given.
+NHWC; PNGs are written (without Pillow, ``utils.misc.write_png``) only when
+an output directory is given.
 
 The command line switches TF32 off for cuDNN's convolutions and for matrix
 products before it loads the network, so that the card computes in float32
@@ -26,6 +27,7 @@ import torch
 from .models.stylegan2 import GMain
 from .snapshot import load_snapshot
 from .utils import generator_output_to_uint8
+from .utils.misc import write_png
 
 
 def generate_images(network: Union[str, GMain], num_images: int,
@@ -57,12 +59,9 @@ def generate_images(network: Union[str, GMain], num_images: int,
             out.append(generator_output_to_uint8(images).cpu().numpy())
     images = np.concatenate(out)[:num_images]
     if out_dir is not None:
-        import PIL.Image
         os.makedirs(out_dir, exist_ok=True)
         for i, arr in enumerate(images):
-            img = (PIL.Image.fromarray(arr[..., 0], "L") if arr.shape[-1] == 1
-                   else PIL.Image.fromarray(arr, "RGB"))
-            img.save(os.path.join(out_dir, f"{i:06d}.png"))
+            write_png(os.path.join(out_dir, f"{i:06d}.png"), arr)
     return images
 
 

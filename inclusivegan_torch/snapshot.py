@@ -1,6 +1,8 @@
-"""Read ``inclusivegan_tpu.network_snapshot.v1`` pickles and carry the JAX
-package's numpy parameter trees across to the port's ``GMain`` and
-``Discriminator``, and the whole (G, D, Gs) triple as a training state.
+"""Read and write ``inclusivegan_tpu.network_snapshot.v1`` pickles: carry
+the JAX package's numpy parameter trees across to the port's ``GMain`` and
+``Discriminator``, and the whole (G, D, Gs) triple as a training state;
+``snapshot_dict`` writes a training state back in the same format, which the
+JAX package's ``load_snapshot`` reads.
 
 A snapshot is a pickle of plain dicts and numpy arrays:
 ``{"format", "G", "D", "Gs"}`` with ``{"config", "params"}`` per network (the
@@ -58,6 +60,34 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             t = t.permute(3, 2, 0, 1).contiguous()
         state[key] = t
     return state
+
+
+def state_dict_to_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``params_to_state_dict``: a nested numpy tree keyed as the
+    JAX package's, conv weights back to [k, k, I, O], dtypes kept."""
+    tree: Dict[str, Any] = {}
+    for key, t in state.items():
+        arr = t.detach().cpu()
+        if key.endswith("weight") and arr.ndim == 4:
+            arr = arr.permute(2, 3, 1, 0)
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr.numpy())
+    return tree
+
+
+def snapshot_dict(G, D, state) -> Dict[str, Any]:
+    """A training state as a ``network_snapshot.v1`` dict: the (G, D, Gs)
+    triple, each the network's config dict (``G.config``, ``D.config``) and
+    its parameters and buffers as a numpy tree, in their dtypes."""
+    def net(model, module):
+        return {"config": model.config,
+                "params": state_dict_to_params(module.state_dict())}
+
+    return {"format": SNAPSHOT_FORMAT + ".v1",
+            "G": net(G, state.G), "D": net(D, state.D), "Gs": net(G, state.Gs)}
 
 
 def gmain_from_params(config: Dict[str, Any], params: Dict[str, Any],

@@ -96,6 +96,22 @@ def load_or_create_projector(image_dim: int, proj_dim: int,
     return projector
 
 
+def check_knn_backend(knn_backend: str, num_candidates: int, proj_dim: int) -> None:
+    """Raise unless the exact backend serves ``knn_backend``: 'dci', and
+    'auto' with candidate features over the exact backend's budget, need the
+    host DCI index, which is not ported yet."""
+    if knn_backend not in ("auto", "exact", "dci"):
+        raise ValueError(f"unknown knn_backend {knn_backend!r}")
+    if knn_backend == "dci" or (
+            knn_backend == "auto"
+            and num_candidates * proj_dim * 4 > _EXACT_KNN_MEMORY_BUDGET):
+        raise NotImplementedError(
+            "knn_backend='dci' (the host DCI index) is not ported yet: it "
+            "comes in a later slice (ROADMAP.md, queue 1 item 5); the exact "
+            "backend takes candidate "
+            f"features up to {_EXACT_KNN_MEMORY_BUDGET >> 30} GiB")
+
+
 class IMLEOrchestrator:
     """Owns the candidate pool, the retrieved latents and the rec cursor."""
 
@@ -111,18 +127,10 @@ class IMLEOrchestrator:
                  drange_data=(0, 255), drange_net=(-1, 1),
                  projector_cache_dir: str = ".", knn_backend: str = "exact",
                  device="cuda"):
-        if knn_backend not in ("auto", "exact", "dci"):
-            raise ValueError(f"unknown knn_backend {knn_backend!r}")
         n = data_size * num_samples_factor
         self.proj_dim = func_proj_dim(init_proj_dim, data_size, num_samples_factor,
                                       image_dim)
-        if knn_backend == "dci" or (
-                knn_backend == "auto"
-                and n * self.proj_dim * 4 > _EXACT_KNN_MEMORY_BUDGET):
-            raise NotImplementedError(
-                "knn_backend='dci' (the host DCI index) is not ported yet: it "
-                "comes in a later slice; the exact backend takes candidate "
-                f"features up to {_EXACT_KNN_MEMORY_BUDGET >> 30} GiB")
+        check_knn_backend(knn_backend, n, self.proj_dim)
         self.data_size = data_size
         self.num_samples_factor = num_samples_factor
         self.latent_size = latent_size
@@ -164,11 +172,17 @@ class IMLEOrchestrator:
         return cur_nimg // period != prev // period
 
     def rebuild(self, generate_images: Callable[[np.ndarray], object],
-                rec_dataset, verbose: bool = True) -> None:
+                rec_dataset, verbose: bool = True,
+                generate_features: Optional[Callable[[np.ndarray], object]] = None
+                ) -> None:
         """Render the candidates with the current G and retrieve the nearest
         candidate's latent for every real. ``generate_images``: latents
         [B, Z] (numpy) -> images [B, C, H, W] in drange_net (a tensor or an
-        array)."""
+        array). ``generate_features`` is accepted for the JAX package's
+        signature and not used: that package fuses the projector into its
+        generator call to spare the device-to-host link, while here the
+        images stay on the card and are projected there."""
+        del generate_features
         if self.selected_latents is not None:
             self.staleness *= 2
         self._rebuild_exact(generate_images, rec_dataset, verbose)
@@ -197,7 +211,7 @@ class IMLEOrchestrator:
         ids = np.empty((nq, k), np.int64)
         dists = np.empty((nq, k), np.float64)
         for j in range(0, nq, _KNN_QUERY_CHUNK):
-            r = torch.as_tensor(reals[j:j + _KNN_QUERY_CHUNK], device=dev)
+            r = torch.tensor(reals[j:j + _KNN_QUERY_CHUNK], device=dev)  # a copy
             d, i = _knn_topk(_featurize(r, projector, self.drange_data,
                                         self.drange_net), cand, k)
             ids[j:j + r.shape[0]] = i.cpu().numpy()

@@ -10,7 +10,8 @@ one. The functions below work on name -> tensor dicts, as the JAX ones work
 on trees; ``params_of`` and ``assign`` move between dicts and modules.
 """
 
-from typing import Dict, Mapping, NamedTuple
+import copy
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -63,8 +64,28 @@ def merge_g(trainables: Mapping[str, torch.Tensor],
     return out
 
 
-def create_train_state(G: nn.Module, D: nn.Module, Gs: nn.Module) -> TrainState:
-    """Fresh Adam moments, ``pl_mean`` 0 and step 0 around the networks."""
+def create_train_state(G: nn.Module, D: nn.Module, Gs: Optional[nn.Module] = None, *,
+                       generator: Optional[torch.Generator] = None,
+                       params: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+                       g_from_gs: bool = False) -> TrainState:
+    """The training state around the networks, as the JAX training loop
+    makes it: with a ``generator``, fresh parameters for G and D first
+    (``init``); Gs a copy of G when not given; then, optionally, the
+    parameters replaced by a snapshot's, ``params`` = {"g_params",
+    "d_params", "gs_params"} name -> tensor dicts, dtypes included; with
+    ``g_from_gs``, G takes copies of Gs's tensors (separate storage).
+    Fresh Adam moments, ``pl_mean`` 0 and step 0."""
+    if generator is not None:
+        G.init(generator)
+        D.init(generator)
+    if Gs is None:
+        Gs = copy.deepcopy(G)
+    if params is not None:
+        assign(G, params["g_params"])
+        assign(D, params["d_params"])
+        assign(Gs, params["gs_params"])
+    if g_from_gs:
+        assign(G, {k: v.detach().clone() for k, v in params_of(Gs).items()})
     device = G.dlatent_avg.device
     return TrainState(
         step=torch.zeros((), dtype=torch.int32, device=device), G=G, D=D, Gs=Gs,

@@ -27,14 +27,20 @@ from .train_state import TrainState, assign, g_trainables, params_of, update_gs
 # Fields of the JAX TrainConfig that this port does not honour yet, with the
 # values that mean "off", and the work that brings them.
 _LATER = {
-    "invariant_rng": ((False,), "invariant_rng comes with gradient accumulation"),
-    "grad_accum_rounds": ((1,), "gradient accumulation comes in a later slice"),
+    "invariant_rng": ((False,), "invariant_rng comes with gradient accumulation "
+                      "(ROADMAP.md, queue 1 item 4)"),
+    "grad_accum_rounds": ((1,), "gradient accumulation comes in a later slice "
+                          "(ROADMAP.md, queue 1 item 4)"),
     "lpips_dtype": ((None, torch.float32, "float32"),
-                    "the LPIPS trunk dtype comes with the bf16 compute knob"),
+                    "the LPIPS trunk dtype comes with the bf16 compute knob "
+                    "(ROADMAP.md, queue 1 item 2)"),
     "lpips_norm": ((None, "f32"),
-                   "lpips_norm='trunk' comes with the bf16 compute knob"),
-    "donate_state": ((False,), "the port updates the state in place already"),
+                   "lpips_norm='trunk' comes with the bf16 compute knob "
+                   "(ROADMAP.md, queue 1 item 2)"),
 }
+# Fields of the JAX TrainConfig that mean nothing here and are accepted at
+# any value: the port updates the state in place already.
+_IGNORED = ("donate_state",)
 
 
 class _Fields(NamedTuple):
@@ -57,11 +63,14 @@ class _Fields(NamedTuple):
 class TrainConfig(_Fields):
     """The hyperparameters of the step that this slice honours. The JAX
     package's other fields (``invariant_rng``, ``grad_accum_rounds``,
-    ``lpips_dtype``, ``lpips_norm``, ``donate_state``) are accepted at
-    their neutral values and raise ``NotImplementedError`` otherwise."""
+    ``lpips_dtype``, ``lpips_norm``) are accepted at their neutral values
+    and raise ``NotImplementedError`` otherwise; ``donate_state`` is
+    accepted either way, since the port updates the state in place."""
     __slots__ = ()
 
     def __new__(cls, *args, **kwargs):
+        for name in _IGNORED:
+            kwargs.pop(name, None)
         for name, (neutral, why) in _LATER.items():
             if name in kwargs:
                 value = kwargs.pop(name)

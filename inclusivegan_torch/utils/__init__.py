@@ -1,4 +1,6 @@
-"""Helpers of the port's generate-images path."""
+"""Helpers of the port: the run harness, logging, statistics, TensorBoard
+events, layer tables and host-side image and file helpers (``misc``), and
+the uint8 conversion of the generate-images path below."""
 
 import torch
 

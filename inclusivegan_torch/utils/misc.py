@@ -1,7 +1,29 @@
-"""Host-side helpers of the training slice, copied from
-``inclusivegan_tpu/utils/misc.py`` (numpy only)."""
+"""Host-side helpers of the training slice and the loop, copied from
+``inclusivegan_tpu/utils/misc.py`` (numpy only).
+
+``save_image_grid`` writes its PNG with ``write_png`` below (``zlib`` and
+``struct``, no Pillow): the machines the port trains on need not have it.
+"""
+
+import pickle
+import re
+import struct
+import zlib
+from typing import Any, Optional, Tuple
 
 import numpy as np
+
+
+def format_time(seconds: float) -> str:
+    """'1d 02h 03m' style elapsed-time formatting."""
+    s = int(round(seconds))
+    if s < 60:
+        return f"{s}s"
+    if s < 3600:
+        return f"{s // 60}m {s % 60:02d}s"
+    if s < 86400:
+        return f"{s // 3600}h {(s // 60) % 60:02d}m {s % 60:02d}s"
+    return f"{s // 86400}d {(s // 3600) % 24:02d}h {(s // 60) % 60:02d}m"
 
 
 def adjust_dynamic_range(data, drange_in, drange_out):
@@ -30,3 +52,91 @@ def slerp_np(a: np.ndarray, b: np.ndarray, t) -> np.ndarray:
     c = normalize(b64 - d * a64)
     out = a64 * np.cos(p) + c * np.sin(p)
     return normalize(out).astype(a.dtype)
+
+
+def parse_kimg_time_from_log(log_path: str) -> Tuple[float, float]:
+    """(kimg, seconds) from the last tick line of a previous run's
+    ``log.txt``; (0, 0) when there is none."""
+    kimg, seconds = 0.0, 0.0
+    try:
+        with open(log_path) as f:
+            for line in f:
+                m = re.search(r"kimg ([\d.]+).*time ((?:\d+d )?(?:\d+h )?(?:\d+m )?(?:\d+s)?)", line)
+                if m:
+                    kimg = float(m.group(1))
+                    seconds = _time_to_seconds(m.group(2))
+    except FileNotFoundError:
+        pass
+    return kimg, seconds
+
+
+def _time_to_seconds(text: str) -> float:
+    total = 0.0
+    for value, unit in re.findall(r"(\d+)([dhms])", text):
+        total += int(value) * {"d": 86400, "h": 3600, "m": 60, "s": 1}[unit]
+    return total
+
+
+def save_pkl(obj: Any, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def create_image_grid(images: np.ndarray, grid_size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """Tile [N, C, H, W] images into one [C, gh * H, gw * W] grid image,
+    row by row; ``grid_size`` is (gw, gh), else the squarest grid."""
+    assert images.ndim in (3, 4)
+    num, img_c, img_h, img_w = images.shape
+    if grid_size is not None:
+        grid_w, grid_h = grid_size
+    else:
+        grid_w = max(int(np.ceil(np.sqrt(num))), 1)
+        grid_h = max((num - 1) // grid_w + 1, 1)
+    grid = np.zeros([img_c, grid_h * img_h, grid_w * img_w], dtype=images.dtype)
+    for idx in range(num):
+        x = (idx % grid_w) * img_w
+        y = (idx // grid_w) * img_h
+        grid[:, y:y + img_h, x:x + img_w] = images[idx]
+    return grid
+
+
+def convert_to_uint8_hwc(images: np.ndarray, drange=(-1, 1)) -> np.ndarray:
+    """[C, H, W] or [N, C, H, W] float in ``drange`` -> HWC uint8 (the JAX
+    package's ``convert_to_uint8_pil``)."""
+    img = adjust_dynamic_range(images, drange, (0, 255))
+    img = np.rint(img).clip(0, 255).astype(np.uint8)
+    if img.ndim == 3:
+        return np.transpose(img, (1, 2, 0))
+    return np.transpose(img, (0, 2, 3, 1))
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """An 8-bit greyscale ([H, W] or [H, W, 1]) or RGB ([H, W, 3]) uint8
+    image as a PNG: one IDAT of zlib-compressed rows, each with filter 0."""
+    img = np.asarray(image)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png takes [H, W] or [H, W, 3] uint8, got "
+                         f"{img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    color_type = 0 if img.ndim == 2 else 2
+    rows = np.ascontiguousarray(img).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                                0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1), grid_size=None) -> None:
+    """Tile ``images`` (float in ``drange`` or uint8 with drange [0, 255])
+    into a grid and write it as a PNG."""
+    write_png(path, convert_to_uint8_hwc(create_image_grid(images, grid_size), drange))

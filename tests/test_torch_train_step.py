@@ -12,10 +12,14 @@ as the CelebA run trains. The JAX draws of the step key are re-derived
 first Adam moment after a phase is that phase's gradient, so gradients are
 read there. Tolerances: loss scalars 1e-4 relative + 1e-5; each gradient,
 second Adam moment and Gs tensor within 2e-3 relative + 1e-5 absolute of its
-largest entry; pl_mean and dlatent_avg 1e-4 relative + 1e-6.
+largest entry; pl_mean and dlatent_avg 1e-4 relative + 1e-6. The same holds
+from the JAX package's own fresh init carried across, and from float16
+trees, as the CelebA snapshot stores its networks and the training loop
+resumes them (float16 kept where JAX keeps it).
 """
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +35,7 @@ from inclusivegan_tpu.training.train_step import TrainConfig as JTrainConfig
 from inclusivegan_tpu.training.train_step import make_train_step as j_make
 from inclusivegan_torch.models.lpips import lpips_params_from_numpy
 from inclusivegan_torch.training import optimizer as topt
-from inclusivegan_torch.training.train_state import create_train_state
+from inclusivegan_torch.training.train_state import create_train_state, g_trainables
 from inclusivegan_torch.training.train_step import TrainConfig, make_train_step
 from torch_golden import jax_draws
 from torch_golden.narrow_nets import RES, ZDIM, flat, narrow_nets, to_port
@@ -66,17 +70,21 @@ def _close(port, ref, err_msg=""):
                                err_msg=err_msg)
 
 
-@pytest.fixture(scope="module")
-def iteration():
-    """Both packages' states and scalars after each phase of one iteration."""
-    G, D, gp, dp, gc, dc = narrow_nets()
+@functools.lru_cache(maxsize=None)
+def _jax_phases(G, D):
     lp = jax.tree_util.tree_map(np.asarray, init_pixel_fallback_params())
+    return lp, j_make(G, D, lp, make_data_mesh(1), JTrainConfig(**CFG)).phases
+
+
+def _run_both(G, D, gp, dp, gc, dc):
+    """Both packages' states and scalars after each phase of one iteration
+    from the parameter trees gp, dp (numpy, in their dtypes)."""
+    lp, ph = _jax_phases(G, D)
     batch = _batch()
     key = jax.random.key(3)
 
     jstate = j_create(jax.random.key(0), G, D)._replace(
         g_params=gp, d_params=dp, gs_params=jax.tree_util.tree_map(np.copy, gp))
-    ph = j_make(G, D, lp, make_data_mesh(1), JTrainConfig(**CFG)).phases
     k1, k2, k3, k4 = jax.random.split(key, 4)
     bg = {k: v for k, v in batch.items() if k.endswith(("_1", "_2"))}
     bd = {"reals": batch["reals"], "labels": batch["labels"]}
@@ -110,6 +118,22 @@ def iteration():
         state, scalars = fn(state)
         port_after.append((copy.deepcopy(state), scalars))
     return jax_after, port_after, (batch, state, step)
+
+
+@pytest.fixture(scope="module")
+def iteration():
+    """Both packages' states and scalars after each phase of one iteration."""
+    G, D, gp, dp, gc, dc = narrow_nets()
+    return _run_both(G, D, gp, dp, gc, dc)
+
+
+def _check_iteration(jax_after, port_after):
+    """Every phase's scalars, gradients and Adam count, then v, pl_mean,
+    dlatent_avg and the Gs EMA after the iteration, at the tolerances
+    above."""
+    for phase in range(4):
+        test_phase_scalars_and_gradients_match_jax((jax_after, port_after, None), phase)
+    test_state_after_the_iteration_matches_jax((jax_after, port_after, None))
 
 
 @pytest.mark.parametrize("phase", range(4), ids=[p for p, _ in PHASES])
@@ -211,13 +235,53 @@ def test_lazy_reg_hparams_match_jax(interval):
 
 @pytest.mark.parametrize("field,value", [
     ("invariant_rng", True), ("grad_accum_rounds", 2), ("lpips_dtype", torch.bfloat16),
-    ("lpips_norm", "trunk"), ("donate_state", True)])
+    ("lpips_norm", "trunk")])
 def test_unhonoured_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TrainConfig(**{field: value})
     neutral = {"invariant_rng": False, "grad_accum_rounds": 1, "lpips_dtype": None,
-               "lpips_norm": "f32", "donate_state": False}[field]
+               "lpips_norm": "f32"}[field]
     assert TrainConfig(**{field: neutral}) == TrainConfig()
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_donate_state_is_accepted_either_way(donate):
+    """The JAX training loop always passes donate_state=True; the port
+    updates its state in place, so the field changes nothing."""
+    assert TrainConfig(donate_state=donate, gamma=100.0) == TrainConfig(gamma=100.0)
+
+
+def test_jax_initialized_tree_steps_like_jax():
+    """The JAX package's own fresh init (zero biases, noise strengths and
+    dlatent_avg, N(0, 1) weights) carried into the port: one iteration
+    matches JAX's phase by phase, as for the randomized trees above."""
+    G, D, _, _, gc, dc = narrow_nets()
+    gp = jax.tree_util.tree_map(np.asarray, G.init(jax.random.key(0)))
+    dp = jax.tree_util.tree_map(np.asarray, D.init(jax.random.key(2)))
+    jax_after, port_after, _ = _run_both(G, D, gp, dp, gc, dc)
+    _check_iteration(jax_after, port_after)
+
+
+def test_float16_trees_step_like_jax_and_stay_float16():
+    """G, D and Gs stored in float16, as the CelebA snapshot stores them and
+    the training loop resumes them: the iteration matches JAX's, Adam
+    rounds G and D back to float16 in both packages, and the Gs EMA comes
+    out float32 in both (the float32 beta promotes it)."""
+    G, D, gp, dp, gc, dc = narrow_nets()
+    gp, dp = (jax.tree_util.tree_map(lambda a: np.asarray(a, np.float16), t)
+              for t in (gp, dp))
+    jax_after, port_after, _ = _run_both(G, D, gp, dp, gc, dc)
+    _check_iteration(jax_after, port_after)
+    jstate, state = jax_after[-1][0], port_after[-1][0]
+    for module, jtree in ((state.G, jstate.g_params), (state.D, jstate.d_params),
+                          (state.Gs, jstate.gs_params)):
+        port = dict(module.state_dict())
+        for k, v in flat(jtree).items():
+            assert str(port[k].dtype) == f"torch.{v.dtype}", k
+    for k in g_trainables(dict(state.G.state_dict())):
+        assert state.G.state_dict()[k].dtype == torch.float16, k
+    assert all(p.dtype == torch.float16 for p in state.D.parameters())
+    assert state.Gs.state_dict()["synthesis.4x4.Conv.weight"].dtype == torch.float32
 
 
 GOLDEN = "inclusivegan_torch/testdata/celeba128_train_golden.npz"
@@ -237,7 +301,7 @@ def test_full_width_iteration_matches_jax_golden():
     import os
     from inclusivegan_torch.models.lpips import load_lpips_params
     from inclusivegan_torch.snapshot import load_networks
-    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_state import create_train_state, g_trainables
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     golden = np.load(os.path.join(root, GOLDEN))
     nets = load_networks(os.path.join(root, str(golden["network"])), device="cpu")
