@@ -71,9 +71,31 @@ Phases, each logged with the seconds since start:
      own Timing/* stats, sec/kimg and kimg/h per tick, the iterations alone
      (the ticks' synchronized seconds less the rebuilds, snapshots and
      checkpoints in them), each rebuild, snapshot and checkpoint; and the
-     card's peak memory.
+     card's peak memory;
+ 13. the production command at bfloat16: one iteration of the CelebA
+     networks with G, D and LPIPS in bf16 against the JAX bf16 golden
+     (``celeba128_train_golden_bf16.npz``: its bf16 loss scalars, and the
+     gradient norms of its float32 iteration) and, phase by phase, the kernel
+     path against the plain path, with every kernel configuration of it held
+     exactly in its dtype; bf16 against float32 from one fresh full-width
+     state, in turns, with and without the regularizers; InceptionV3 float32
+     against float64 on 16 Gs images and FID of a feature set with itself;
+     then ``run_training`` with the flags of
+     ``scripts/run_celeba_quality_loop.sh:49-54`` (``--dtype bfloat16``,
+     fresh init, ``--metrics fid30k`` with is50k, both cut to 2048 fakes)
+     for 16 iterations on phase 12's dataset, through ``submit_run`` with
+     the launch counts set to 0 just before and read just after: bf16
+     networks, finite losses, one finite FID and IS per network snapshot
+     with their random-feature tags, no metric failure; the loop's times;
+     the rebuild's kernels at 1024 bf16 candidates exact; each kernel in
+     bf16 at the largest shape the run gave it (ms, plain, bound, library);
+     and ``python -m inclusivegan_torch.run_metrics --metrics fid10k`` on
+     the CelebA snapshot at 10000 fakes (exit 0, finite, the Gs's and
+     InceptionV3's images/s). The metric cache lives in the phase's
+     temporary directory.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
-300 s and phase 12 under 240 s; a run over any budget fails. Any failure raises and the script
+300 s, phase 12 under 240 s and phase 13 under 300 s; a run over any budget
+fails. Any failure raises and the script
 exits non-zero. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -168,6 +190,44 @@ LOOP_TICK_KIMG = 0.048  # resumed runs: a tick every 8 iterations of 6 images,
 LOOP_TOTAL_KIMG = 0.144  # 24 iterations, 3 ticks;
 LOOP_INIT_STALENESS = 2  # rebuilds at iterations 0 and 20, the staleness doubles
 LOOP_RESUME_ITERS = 8  # then from the last checkpoint
+
+# Phase 13, the production command of scripts/run_celeba_quality_loop.sh:49-54
+# as it stands: --dtype bfloat16 from a fresh init, --metrics fid30k, with
+# is50k beside it (the script's evaluation stage runs FID and IS next). Cut in
+# depth as phase 12 (two ticks of 8 iterations, a network snapshot at each)
+# and in the metrics' sample counts (BF16_METRIC_IMAGES fakes in place of
+# 30000 and 50000); the width is not cut.
+BF16_BUDGET_S = 300
+BF16_METRICS = ("fid30k", "is50k")
+BF16_METRIC_IMAGES = 2048
+BF16_TOTAL_KIMG = 0.096  # 16 iterations of 6 images, two ticks of 8
+BF16_GOLDEN = os.path.join(HERE, "inclusivegan_torch", "testdata",
+                           "celeba128_train_golden_bf16.npz")
+# bf16 against the JAX bf16 golden: loss scalars within 2e-2 relative. The
+# gradient norms of each phase, as one vector, within BF16_NORM_REL_L2
+# (relative L2) of the golden's float32 iteration of the same draws (its
+# "f32/" entries), not of its bf16 norms: XLA's CPU backend sums a bf16 bias
+# gradient over batch and pixels in bf16, which stagnates at 128 px, so
+# JAX's bf16 norms lie 10-53% from float32 and are logged beside the card's
+# but hold nothing. Each limit lies between the card's readings (g_main
+# 9.02-9.12e-3, g_reg 9.205e-2, d_main 2.84-2.87e-3, d_reg 8.28-8.55e-3)
+# and controls that drop one float32 rule of the reference: D's resnet
+# promotion (g_main 1.01e-2, d_main 4.75e-3, d_reg 1.07e-2), G's style dense
+# (g_main 1.09e-2, d_main 4.00e-3) or its demodulation (g_main 1.01e-2,
+# d_main 3.79e-3) in bf16. No control moved g_reg past its limit; the G
+# controls move pl_penalty 4.2-4.5e-2 from the golden, past the scalar limit
+# (sound: 1.678e-2 in every reading). The kernel path against the plain path
+# at bf16: the whole gradient within BF16_PATHS_REL_L2 relative L2 (readings
+# 0 to 1.2e-3).
+BF16_SCALAR_RTOL = 2e-2
+BF16_NORM_REL_L2 = {"g_main": 9.6e-3, "g_reg": 1e-1, "d_main": 3.3e-3, "d_reg": 9.5e-3}
+BF16_PATHS_REL_L2 = 5e-3
+# InceptionV3 on the card (float32, TF32 off): pool_3 features of 16 Gs
+# images against the same net in float64, relative L2; FID of a feature set
+# against itself, relative to the mean squared feature norm.
+INCEPTION_REL_L2 = 1e-4
+FID_SELF_REL = 1e-6
+CLI_METRIC = "fid10k"  # run_metrics at the registry's full 10000 fakes
 
 
 def log(msg: str) -> None:
@@ -316,9 +376,11 @@ def float64_gradient_norm(torch, state0, lpips, cfg, batch, draws, phase_name, p
                           g_lrate, d_lrate, gs_beta, device="cuda"):
     """The L2 norm of one parameter's gradient in one phase, from the state
     ``state0``, with everything in float64 on the card through the plain
-    path. The port promotes to float32 where the JAX package does
-    (``.float()``); for this one reading every such promotion goes to
-    float64 instead, and so do tensors made from Python numbers."""
+    path. The networks and the LPIPS trunk compute in float64; the port's
+    float32 islands, where the JAX package promotes (``.float()``), go to
+    float64 for this one reading, and so do tensors made from Python
+    numbers."""
+    from inclusivegan_torch.models.stylegan2 import set_compute_dtype
     from inclusivegan_torch.training.train_step import make_train_step
 
     def to64(v):
@@ -331,12 +393,14 @@ def float64_gradient_norm(torch, state0, lpips, cfg, batch, draws, phase_name, p
     state = copy.deepcopy(state0)
     for net in (state.G, state.D, state.Gs):
         net.double()
+        set_compute_dtype(net, torch.float64)
     to_float = torch.Tensor.float
     default = torch.get_default_dtype()
     torch.Tensor.float = lambda self, *args, **kwargs: self.double(*args, **kwargs)
     torch.set_default_dtype(torch.float64)
     try:
-        step = make_train_step(state.G, state.D, to64(lpips), cfg, device=device,
+        step = make_train_step(state.G, state.D, to64(lpips),
+                               cfg._replace(lpips_dtype=torch.float64), device=device,
                                impl="plain")
         runs = phase_runners(step, to64(batch), to64(draws), g_lrate, d_lrate, gs_beta,
                              cfg.NN_rec_lpips_weight)
@@ -825,13 +889,13 @@ def read_stats(path):
         return [json.loads(line) for line in f]
 
 
-def loop_kwargs(data_dir, result_dir, extra_flags):
+def loop_kwargs(data_dir, result_dir, extra_flags, flags=CLI_FLAGS):
     """The loop's keyword arguments as the command line builds them
     (``run_training.parse_args`` and ``run``), without submitting."""
     from inclusivegan_torch import run_training
     seen = {}
     argv = ["--data-dir", data_dir, "--dataset", LOOP_DATASET, "--result-dir",
-            result_dir] + CLI_FLAGS + extra_flags
+            result_dir] + flags + extra_flags
     with mock.patch.object(run_training, "submit_run",
                            lambda sc, fn, **kw: seen.update(sc=sc, fn=fn, kw=kw)):
         run_training.run(**run_training.parse_args(argv))
@@ -1157,7 +1221,7 @@ def check_resumed_run(torch, state, run_dir, launches, rebuild_from):
         raise RuntimeError("network-final.pkl does not hold the trained Gs")
 
 
-def report_run(label, run_dir, wall, steps, launches, n_rebuilds):
+def report_run(label, run_dir, wall, steps, launches, n_rebuilds, n_metric_runs=0):
     """sec/kimg and kimg/h per tick, as the loop reads them; then the
     iterations alone: the ticks' seconds (the card synchronized at the end of
     each) less the rebuilds, image and network snapshots and checkpoints that
@@ -1171,6 +1235,8 @@ def report_run(label, run_dir, wall, steps, launches, n_rebuilds):
     # snapshots images every tick and networks with each checkpoint.
     n_events = {"dci_rebuild": n_rebuilds, "image_snapshot": len(ticks),
                 "snapshot": n_ckpts, "checkpoint": n_ckpts}
+    if n_metric_runs:
+        n_events["metrics"] = n_metric_runs
     for kind, n in n_events.items():
         got = sum(f"Timing/{kind}_sec" in r for r in stats)
         if got != n:
@@ -1200,6 +1266,456 @@ def report_run(label, run_dir, wall, steps, launches, n_rebuilds):
     log(f"{label}: {wall:.1f} s in all, {steps[0]:.1f} s of it before the first step "
         f"(networks, LPIPS, grids, the first rebuild) and {steps[1] - steps[0]:.1f} s "
         f"from the first step to the last, host clock; launches {launches}")
+
+
+def check_recorded(np, torch, ck, rec, gen, label):
+    """Each kernel at every distinct (shape, arguments, dtype) that ``rec``
+    saw, against its plain version on fresh random inputs of that dtype,
+    exactly. Returns the largest error of each counter and the number of
+    configurations."""
+    from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
+    from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    errs = dict.fromkeys(KERNELS, 0.0)
+    n = 0
+    with torch.no_grad():
+        for shape, (axis, alpha, gain), dtype in rec.unique_typed("bias_lrelu"):
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            b = torch.randn(shape[axis], device="cuda", generator=gen).to(dtype)
+            e = check_kernel(f"{label} bias_lrelu", shape,
+                             lambda: ck.bias_lrelu(x, b, axis, alpha, gain),
+                             lambda: fused_bias_act(x, b, axis=axis, act="lrelu",
+                                                    alpha=alpha, gain=gain, impl="plain"),
+                             dtype, TOL[str(dtype)[6:]])
+            errs["bias_lrelu"] = max(errs["bias_lrelu"], e)
+            n += 1
+        for shape, (alpha, gain), dtype in rec.unique_typed("bias_lrelu_grad"):
+            y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            e = check_kernel(f"{label} bias_lrelu_grad", shape,
+                             lambda: ck.bias_lrelu_grad(y, dy, alpha, gain),
+                             lambda: bias_lrelu_grad_plain(y, dy, alpha, gain),
+                             dtype, TOL[str(dtype)[6:]])
+            errs["bias_lrelu_grad"] = max(errs["bias_lrelu_grad"], e)
+            n += 1
+        for shape, (f, up, down, pad, gain, counter), dtype in rec.unique_typed("upfirdn2d"):
+            f = np.asarray(f, np.float32)
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            e = check_kernel(f"{label} {counter} up {up} down {down} pad {pad}", shape,
+                             lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
+                             lambda: upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain,
+                                               impl="plain"),
+                             dtype, TOL[str(dtype)[6:]])
+            errs[counter] = max(errs[counter], e)
+            n += 1
+    return errs, n
+
+
+def bf16_kernel_times(np, torch, ck, iter_rec, rebuild_recs, gen, launches):
+    """Each kernel in bfloat16 at the largest shape the bf16 loop launched
+    it with (iteration and rebuild), beside its plain version, its bound in
+    bf16 bytes and a library call: one record per kernel."""
+    from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
+    from inclusivegan_torch.ops.bench import (F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                              depthwise_library_call, device_ms,
+                                              fir_bound)
+    from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    bf16 = torch.bfloat16
+
+    def largest(name, counter=None):
+        calls = [(shape, key) for r in [iter_rec] + list(rebuild_recs) if name in r.calls
+                 for (shape, key, dtype) in r.unique_typed(name)
+                 if dtype == bf16 and (counter is None or key[5] == counter)]
+        return max(calls, key=lambda c: math.prod(c[0]))
+
+    out = {}
+    with torch.no_grad():
+        shape, (axis, alpha, gain) = largest("bias_lrelu")
+        x = torch.randn(shape, device="cuda", generator=gen, dtype=bf16)
+        b = torch.randn(shape[axis], device="cuda", generator=gen, dtype=bf16)
+        t_bytes = (2 * x.numel() + b.numel()) * 2 / HBM_BYTES_PER_S
+        t_ops = 3 * x.numel() / F32_OPS_PER_S
+        out["bias_lrelu"] = dict(
+            shape=list(shape), ms=device_ms(lambda: ck.bias_lrelu(x, b, axis, alpha, gain)),
+            plain_ms=device_ms(lambda: fused_bias_act(x, b, axis=axis, act="lrelu",
+                                                      alpha=alpha, gain=gain,
+                                                      impl="plain")),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+        del x, b
+        shape, (alpha, gain) = largest("bias_lrelu_grad")
+        y = torch.randn(shape, device="cuda", generator=gen, dtype=bf16)
+        dy = torch.randn(shape, device="cuda", generator=gen, dtype=bf16)
+        t_bytes = 3 * y.numel() * 2 / HBM_BYTES_PER_S
+        t_ops = 2 * y.numel() / F32_OPS_PER_S
+        out["bias_lrelu_grad"] = dict(
+            shape=list(shape), ms=device_ms(lambda: ck.bias_lrelu_grad(y, dy, alpha, gain)),
+            plain_ms=device_ms(lambda: bias_lrelu_grad_plain(y, dy, alpha, gain)),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+        del y, dy
+        for counter in ("upfirdn2d", "upfirdn2d_transposed"):
+            shape, (f, up, down, pad, gain, _c) = largest("upfirdn2d", counter)
+            f = np.asarray(f, np.float32)
+            x = torch.randn(shape, device="cuda", generator=gen, dtype=bf16)
+            bound_ms, bound_by = fir_bound(shape, f, up, down, pad, 2)
+            lib = depthwise_library_call(x, f, up, down, pad, gain)
+            out[counter] = dict(
+                shape=list(shape), config=dict(up=up, down=down, pad=list(pad), gain=gain),
+                ms=device_ms(lambda: ck.upfirdn2d(x, f, up, down, pad, gain,
+                                                  counter=counter)),
+                plain_ms=device_ms(lambda: upfirdn2d(x, f, up=up, down=down, pad=pad,
+                                                     gain=gain, impl="plain")),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(lib) if lib is not None else None)
+            del x
+    for name, r in out.items():
+        r["launches"] = launches[name]
+        log(f"bf16 {name} at {tuple(r['shape'])}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it), library {r['library_ms']}; "
+            f"{r['launches']} launches in the bf16 loop")
+    torch.cuda.empty_cache()
+    return out
+
+
+def fresh_nets(torch, dtype, seed=3):
+    """config-e-Gskip-Dresnet at 128 px, fresh from ``seed``, computing in
+    ``dtype``: the networks of a fresh run_training.py at that --dtype."""
+    from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
+    G = GMain.create(resolution=128, num_channels=3, fmap_base=8 << 10,
+                     architecture="skip", dtype=dtype)
+    D = Discriminator(resolution=128, num_channels=3, fmap_base=8 << 10,
+                      architecture="resnet", dtype=dtype)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return G.to("cuda"), D.to("cuda"), gen
+
+
+def bf16_golden_checks(np, torch, ck, gen):
+    """Phase 13.1-13.2: the bf16 iteration against the JAX bf16 golden and
+    the kernel path against the plain path, with every kernel configuration
+    of it held exactly. Returns the largest error of each kernel."""
+    import ast
+    from inclusivegan_torch.models.lpips import load_lpips_params
+    from inclusivegan_torch.models.stylegan2 import set_compute_dtype
+    from inclusivegan_torch.ops.bench import Recorder
+    from inclusivegan_torch.snapshot import load_networks
+    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_step import (
+        TrainConfig, make_train_step, unflatten_draws)
+
+    lpips = load_lpips_params(LPIPS_WEIGHTS, device="cuda")
+    golden = np.load(BF16_GOLDEN)
+    if str(golden["dtype"]) != "bfloat16":
+        raise RuntimeError(f"{BF16_GOLDEN} holds a {golden['dtype']} iteration")
+    G, D, Gs = load_networks(NETWORK, device="cuda")
+    for net in (G, D, Gs):
+        net.float()  # float32 weights, as the golden's writer casts them
+        set_compute_dtype(net, "bfloat16")
+    state0 = create_train_state(G, D, Gs)
+    cfg = TrainConfig(**ast.literal_eval(str(golden["config"])))
+    steps = {impl: make_train_step(G, D, lpips, cfg, device="cuda", impl=impl)
+             for impl in ("cuda", "plain")}
+    batch = steps["cuda"].phases["to_device"](
+        {k[len("batch/"):]: golden[k] for k in golden.files if k.startswith("batch/")})
+    draws = unflatten_draws({k[len("draws/"):]: golden[k] for k in golden.files
+                             if k.startswith("draws/")}, device="cuda")
+    runs = {impl: phase_runners(steps[impl], batch, draws, float(golden["g_lrate"]),
+                                float(golden["d_lrate"]), float(golden["gs_beta"]),
+                                cfg.NN_rec_lpips_weight) for impl in steps}
+    log(f"bf16: G {G.synthesis.dtype}, D {D.dtype}, {cfg}")
+    states = {impl: copy.deepcopy(state0) for impl in steps}
+    # the recorder sees the kernel path's launches: the plain path makes none
+    with Recorder(ck, ("bias_lrelu", "bias_lrelu_grad", "upfirdn2d")) as rec:
+        for name, opt in PHASES:
+            states["cuda"], sk = runs["cuda"][name](states["cuda"])
+            states["plain"], sp = runs["plain"][name](states["plain"])
+            for k, v in sk.items():
+                ref = float(golden[f"scalar/{name}/{k}"])
+                for label, got in (("card, kernels", v.item()), ("card, plain", sp[k].item())):
+                    d = abs(got - ref) / abs(ref)
+                    log(f"bf16 {name} {k}: {label} {got:.6g}, JAX golden {ref:.6g}, "
+                        f"relative difference {d:.3e} (limit {BF16_SCALAR_RTOL:g})")
+                    if not d <= BF16_SCALAR_RTOL:
+                        raise RuntimeError(f"bf16 {name} {k} disagrees with the JAX golden")
+            prefix = f"grad_norm/{name}/"
+            ref = {k[len(prefix):]: float(golden[k]) for k in golden.files
+                   if k.startswith(prefix)}
+            mk, mp = getattr(states["cuda"], opt).m, getattr(states["plain"], opt).m
+            if set(ref) != set(mk):
+                raise RuntimeError(f"{name}: parameters differ from the bf16 golden's")
+            names = sorted(ref)
+            jax16 = np.array([ref[k] for k in names])
+            f32 = np.array([float(golden[f"f32/{prefix}{k}"]) for k in names])
+            card = np.array([mk[k].double().norm().item() for k in names])
+
+            def rel(a, b):
+                return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+            worst = max(range(len(names)),
+                        key=lambda i: abs(card[i] - f32[i]) / max(f32[i], 1e-30))
+            d = rel(card, f32)
+            log(f"bf16 {name}: {len(names)} gradient norms, relative L2 from the "
+                f"golden's float32 iteration of the same draws: the card {d:.3e} "
+                f"(limit {BF16_NORM_REL_L2[name]:g}), JAX bf16 {rel(jax16, f32):.3e} "
+                f"({rel(jax16, f32) / max(d, 1e-30):.1f}x the card's); farthest alone "
+                f"{names[worst]}: card {card[worst]:.6g}, float32 {f32[worst]:.6g}, "
+                f"JAX bf16 {jax16[worst]:.6g}")
+            if not d <= BF16_NORM_REL_L2[name]:
+                raise RuntimeError(f"bf16 {name} gradient norms lie too far from the "
+                                   "golden's float32 iteration")
+            whole = lambda m: torch.cat([m[k].double().flatten() for k in names])  # noqa: E731
+            e = rel_l2(torch, whole(mk), whole(mp))
+            log(f"bf16 {name}: kernel path against plain path, whole gradient relative "
+                f"L2 {e:.3e} (limit {BF16_PATHS_REL_L2:g})")
+            if not e <= BF16_PATHS_REL_L2:
+                raise RuntimeError(f"bf16 {name}: kernel path and plain path disagree")
+    torch.cuda.synchronize()
+    del states, state0
+    n_calls = {k: len(v) for k, v in rec.calls.items()}
+    errs, n = check_recorded(np, torch, ck, rec, gen, "bf16 iteration")
+    log(f"bf16 iteration: {n_calls} kernel calls, {n} distinct configurations, "
+        f"dtypes {sorted(str(d)[6:] for ds in rec.dtypes.values() for d in ds)}; "
+        "all exact")
+    if torch.bfloat16 not in rec.dtypes["upfirdn2d"] | rec.dtypes["bias_lrelu"]:
+        raise RuntimeError("the bf16 iteration launched no bf16 kernel")
+    return errs
+
+
+def bf16_against_f32(np, torch, ck, gen):
+    """Phase 13.3: one bf16 iteration against float32 in turns, from one
+    fresh state, with and without the regularizers; every kernel
+    configuration of the bf16 iteration at the loop's minibatch is held
+    exactly. Returns the recorder of that iteration and the largest error
+    of each kernel."""
+    from inclusivegan_torch.models.lpips import load_lpips_params
+    from inclusivegan_torch.ops.bench import Recorder
+    from inclusivegan_torch.profile_train import synthetic_batch
+    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_step import (
+        TrainConfig, draw_train_step, make_train_step)
+
+    lpips = load_lpips_params(LPIPS_WEIGHTS, device="cuda")
+    # bf16 against float32 from one fresh state (the same values), in turns,
+    # with and without the regularizers
+    secs = {}
+    tstates, truns = {}, {}
+    for dt in ("float32", "bfloat16"):
+        G, D, g = fresh_nets(torch, dt)
+        tstates[dt] = create_train_state(G, D, generator=g)
+        tcfg = TrainConfig(**TRAIN_CONFIG, lpips_dtype=None if dt == "float32" else dt)
+        step = make_train_step(G, D, lpips, tcfg, device="cuda")
+        truns[dt] = phase_runners(
+            step, step.phases["to_device"](synthetic_batch(TRAIN_MB, 128, 512, 0)),
+            draw_train_step(G, TRAIN_MB, torch.Generator("cuda").manual_seed(5), tcfg),
+            LRATE, LRATE, GS_BETA, tcfg.NN_rec_lpips_weight)
+        for regs in (True, False):
+            secs[(dt, regs)] = {n: [] for n, _ in PHASES}
+
+    def iteration(dt, regs, keep=True):
+        for name, _ in PHASES:
+            if not regs and name in ("g_reg", "d_reg"):
+                continue
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tstates[dt], _s = truns[dt][name](tstates[dt])
+            torch.cuda.synchronize()
+            if keep:
+                secs[(dt, regs)][name].append(time.perf_counter() - t)
+
+    iteration("float32", True, keep=False)  # warm-up
+    # the bf16 warm-up records the kernels' configurations at the loop's
+    # minibatch (the golden's is 3), held exactly like the golden's
+    with Recorder(ck, ("bias_lrelu", "bias_lrelu_grad", "upfirdn2d")) as loop_rec:
+        iteration("bfloat16", True, keep=False)
+    torch.cuda.synchronize()
+    loop_errs, n = check_recorded(np, torch, ck, loop_rec, gen, "bf16 iteration, minibatch 6")
+    log(f"bf16 iteration at minibatch {TRAIN_MB}: "
+        f"{ {k: len(v) for k, v in loop_rec.calls.items()} } kernel calls, {n} distinct "
+        "configurations; all exact")
+    for regs, reps in ((True, 4), (False, 4)):
+        for i in range(reps):
+            for dt in (("float32", "bfloat16") if i % 2 == 0 else ("bfloat16", "float32")):
+                iteration(dt, regs)
+    totals = {}
+    for (dt, regs), by_phase in secs.items():
+        med = {n: statistics.median(v) for n, v in by_phase.items() if v}
+        totals[(dt, regs)] = sum(med.values())
+        log(f"fresh iteration {'with' if regs else 'without'} the regularizers, "
+            f"minibatch {TRAIN_MB}, {dt}: {totals[(dt, regs)]:.4f} s = "
+            + " + ".join(f"{n} {v:.4f}" for n, v in med.items()) + " (medians of 4)")
+    for regs in (True, False):
+        log(f"bf16 against float32 {'with' if regs else 'without'} the regularizers: "
+            f"{100 * (1 - totals[('bfloat16', regs)] / totals[('float32', regs)]):.1f}% "
+            "less time")
+    del tstates, truns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loop_rec, loop_errs
+
+
+def inception_checks(np, torch):
+    """Phase 13.4: InceptionV3 on the card, float32 with TF32 off, against
+    the same net in float64; FID of a feature set with itself."""
+    from inclusivegan_torch.metrics.frechet_inception_distance import frechet_distance
+    from inclusivegan_torch.metrics.metric_base import GsSampler
+    from inclusivegan_torch.models.inception import InceptionV3
+    sampler = GsSampler(NETWORK, minibatch_size=16, device="cuda")
+    imgs = next(sampler.random_images(16))
+    net = InceptionV3(device="cuda")
+    f32 = torch.from_numpy(net(imgs)).double()
+    net.params = {k: v.double() for k, v in net.params.items()}
+    with torch.no_grad():
+        f64 = net.features(torch.from_numpy(imgs).cuda()).cpu()
+    e = rel_l2(torch, f32, f64)
+    log(f"InceptionV3 pool_3 of 16 Gs images, float32 against float64 on the card: "
+        f"relative L2 {e:.3e} (limit {INCEPTION_REL_L2:g})")
+    if not e <= INCEPTION_REL_L2:
+        raise RuntimeError("InceptionV3 float32 features disagree with float64")
+    net = InceptionV3(device="cuda")
+    feats = np.concatenate([net(imgs[i:i + 8]) for imgs in sampler.random_images(512)
+                            for i in range(0, imgs.shape[0], 8)]).astype(np.float64)
+    mu, sigma = feats.mean(0), np.cov(feats, rowvar=False)
+    fid = frechet_distance(mu, sigma, mu, sigma)
+    scale = float(np.mean(np.sum(np.square(feats), axis=1)))
+    log(f"FID of 512 Gs images' features with themselves: {fid:.3e}; "
+        f"{abs(fid) / scale:.3e} of the mean squared feature norm {scale:.4g} "
+        f"(limit {FID_SELF_REL:g})")
+    if not abs(fid) <= FID_SELF_REL * scale:
+        raise RuntimeError("FID of a feature set with itself is not 0")
+    del sampler, net
+    torch.cuda.empty_cache()
+
+
+def production_bf16_phase(np, torch, ck):
+    """Phase 13. Returns the kernels' launch counts of the bf16 loop, the
+    largest error of each kernel at its bf16 configurations, and the bf16
+    kernel records."""
+    from inclusivegan_torch.metrics.metric_defaults import metric_defaults
+    from inclusivegan_torch.utils.easydict import EasyDict
+
+    phase("13 the production command at bf16: fresh init, FID and IS at every "
+          "network snapshot; the bf16 iteration against its JAX golden; "
+          "InceptionV3 on the card; run_metrics")
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    torch.cuda.empty_cache()
+    iter_errs = bf16_golden_checks(np, torch, ck, gen)
+    iter_rec, loop_errs = bf16_against_f32(np, torch, ck, gen)
+    iter_errs = {k: max(v, loop_errs[k]) for k, v in iter_errs.items()}
+    inception_checks(np, torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    old_cache = os.environ.get("INCLUSIVEGAN_CACHE")
+    os.environ["INCLUSIVEGAN_CACHE"] = os.path.join(tmp, "metric_cache")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        write_loop_dataset(np, data_dir, 128)
+        cut = {name: EasyDict(metric_defaults[name], num_images=BF16_METRIC_IMAGES)
+               for name in BF16_METRICS}
+        flags = [f for f in CLI_FLAGS if f not in ("--metrics", "none")]
+        flags += ["--dtype", "bfloat16", "--metrics", ",".join(BF16_METRICS),
+                  "--image-snapshot-ticks", "1", "--network-snapshot-ticks", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.dict(metric_defaults, cut):
+            sc, fn, kw = loop_kwargs(data_dir, os.path.join(tmp, "run"), [], flags=flags)
+        kw = dict(kw, total_kimg=BF16_TOTAL_KIMG,
+                  sched_args=dict(kw["sched_args"], tick_kimg_base=LOOP_TICK_KIMG))
+        if kw["G_args"].get("dtype") != "bfloat16" or kw["D_args"].get("dtype") != "bfloat16":
+            raise RuntimeError(f"the command line did not ask for bf16: {kw['G_args']}")
+        log(f"$ run_training {' '.join(os.path.relpath(a, HERE) if a.startswith(HERE) else a for a in flags)}"
+            f" (total_kimg {BF16_TOTAL_KIMG}, tick {LOOP_TICK_KIMG} kimg; "
+            f"{', '.join(f'{n} at {BF16_METRIC_IMAGES} images' for n in BF16_METRICS)})")
+        t = time.time()
+        state, run_dir, launches, steps, rebuild_from, recs = run_loop(torch, ck, sc, fn, kw)
+        wall = time.time() - t
+        dtypes = (state.G.synthesis.dtype, state.D.dtype, state.Gs.synthesis.dtype)
+        log(f"bf16 loop: G, D, Gs compute in {[str(d)[6:] for d in dtypes]}; launches "
+            f"{launches}")
+        if dtypes != (torch.bfloat16,) * 3 or not all(launches[k] > 0 for k in KERNELS):
+            raise RuntimeError("the bf16 loop did not run bf16 networks through every kernel")
+        stats = read_stats(os.path.join(run_dir, "stats.jsonl"))
+        losses = {k: v for rec in stats for k, v in rec.items() if k.startswith("Loss/")}
+        if len(losses) != 11 or not all(math.isfinite(v) for v in losses.values()):
+            raise RuntimeError(f"the bf16 loop's loss scalars: {losses}")
+        log("bf16 loop losses " + ", ".join(f"{k[5:]} {v:.5g}" for k, v in sorted(losses.items())))
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            run_log = f.read()
+        failed = [ln for ln in run_log.splitlines() if " failed: " in ln and "metric" in ln]
+        if failed:
+            raise RuntimeError(f"a metric failed in the loop: {failed}")
+        for ln in run_log.splitlines():
+            if ": Gs " in ln or ": InceptionV3" in ln:
+                log(ln)
+        n_snaps = sum("Timing/snapshot_sec" in r for r in stats)
+        per_kimg = {}
+        for name in BF16_METRICS:
+            lines = open(os.path.join(run_dir, f"metric-{name}.txt")).read().splitlines()
+            log(f"metric-{name}.txt: " + " | ".join(lines))
+            tag = "_random_features" if name.startswith("fid") else "_random_classifier"
+            values = [float(ln.split(f" {name} ")[1].split()[0]) if name.startswith("fid")
+                      else float(ln.split(f" {name}_mean ")[1].split()[0]) for ln in lines]
+            if len(lines) != n_snaps or n_snaps != 2 \
+                    or not all(math.isfinite(v) for v in values) \
+                    or not all(f"{tag} 1" in ln for ln in lines):
+                raise RuntimeError(f"metric-{name}.txt: {lines} for {n_snaps} snapshots")
+            secs = [float(ln.split(" time ")[1].split()[0]) for ln in lines]
+            per_kimg[name] = [1000 * s / BF16_METRIC_IMAGES for s in secs]
+            log(f"{name}: {', '.join(f'{v:.3f} s' for v in per_kimg[name])} per 1000 "
+                f"generated images (the metric's whole time over its {BF16_METRIC_IMAGES})")
+        report_run("bf16 production run", run_dir, wall, steps, launches,
+                   len(rebuild_from), n_metric_runs=n_snaps)
+        log(f"device memory: peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+            f" GB, peak reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.3f} GB "
+            "(the bf16 run)")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        rebuild_errs = check_rebuild_kernels(np, torch, ck, recs)
+        if any(torch.bfloat16 not in r.dtypes["upfirdn2d"] for r in recs):
+            raise RuntimeError("the bf16 rebuild launched no bf16 FIR")
+        bf16_records = bf16_kernel_times(np, torch, ck, iter_rec, recs, gen, launches)
+        del recs
+
+        # 13.5 run_metrics on the CelebA snapshot at the registry's 10000 fakes
+        cli_root = os.path.join(tmp, "metrics")
+        argv = [sys.executable, "-m", "inclusivegan_torch.run_metrics", "--network",
+                NETWORK, "--metrics", CLI_METRIC, "--data-dir", data_dir, "--dataset",
+                LOOP_DATASET, "--mirror-augment", "true", "--result-dir", cli_root]
+        log("$ " + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
+                            for a in argv[1:]))
+        t = time.time()
+        proc = subprocess.run(argv, cwd=HERE, capture_output=True, text=True,
+                              timeout=BF16_BUDGET_S)
+        cli_s = time.time() - t
+        out = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            print(out[-3000:], flush=True)
+            raise RuntimeError(f"run_metrics exited {proc.returncode}")
+        for ln in out.splitlines():
+            if ln.startswith(f"{CLI_METRIC}: ") or ln.startswith("network-snapshot") \
+                    or ln.startswith("celeba_best"):
+                log(f"run_metrics: {ln}")
+        (res_dir,) = os.listdir(cli_root)
+        (line,) = open(os.path.join(cli_root, res_dir, f"metric-{CLI_METRIC}.txt")
+                       ).read().splitlines()
+        value = float(line.split(f" {CLI_METRIC} ")[1].split()[0])
+        n_fakes = metric_defaults[CLI_METRIC].num_images
+        log(f"run_metrics --metrics {CLI_METRIC}: exit 0 in {cli_s:.1f} s, {n_fakes} fakes, "
+            f"{CLI_METRIC} {value:.4f}")
+        if not math.isfinite(value) or f": Gs {n_fakes} images" not in out \
+                or f": InceptionV3 {n_fakes} images" not in out:
+            raise RuntimeError(f"run_metrics gave {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if old_cache is None:
+            os.environ.pop("INCLUSIVEGAN_CACHE", None)
+        else:
+            os.environ["INCLUSIVEGAN_CACHE"] = old_cache
+    errs = {k: max(v, rebuild_errs.get(k, 0.0)) for k, v in iter_errs.items()}
+    bf16_s = time.time() - t_phase
+    log(f"phase 13 took {bf16_s:.1f} s (budget {BF16_BUDGET_S} s)")
+    if bf16_s >= BF16_BUDGET_S:
+        raise RuntimeError(f"phase 13 took {bf16_s:.1f} s, over its {BF16_BUDGET_S} s budget")
+    return launches, errs, bf16_records
 
 
 def main() -> int:
@@ -1418,6 +1934,14 @@ def main() -> int:
         r["launches_by_path"] = dict(r.get("launches_by_path", {}),
                                      training_loop=loop_launches[r["name"]])
         r["max_abs_err"] = max(r["max_abs_err"], loop_errs.get(r["name"], 0.0))
+
+    gc.collect()
+    bf16_launches, bf16_errs, bf16_records = production_bf16_phase(np, torch, ck)
+    for r in records:
+        r["launches_by_path"]["training_loop_bf16"] = bf16_launches[r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"], bf16_errs.get(r["name"], 0.0))
+        r["bf16"] = bf16_records[r["name"]]
+    log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -5,8 +5,11 @@ Parameters are a dict of tensors in the JAX package's layout, with conv
 weights turned to OIHW: ``{"_mode": 0|1|2, "conv1_1": {"w", "b"}, ...,
 "lin_conv1_2": [C], ...}``. Mode 1 is converted weights
 (``load_lpips_params``), mode 2 the pixel-pyramid fallback, which has no conv
-leaves. The trunk runs in float32; the JAX package's bfloat16 trunk and its
-``_normalize_channels_trunk_dtype`` come with the compute-dtype knob.
+leaves. The trunk runs in the ``dtype`` the caller asks for (float32 by
+default, bfloat16 with the training loop's ``--dtype bfloat16``); its tap
+maps are channel-normalized in float32 (``norm="f32"``, the default) or, with
+``norm="trunk"``, in the trunk's dtype with a float32 sum of squares
+(``_normalize_channels_trunk_dtype``), as in the JAX package.
 """
 
 import math
@@ -16,6 +19,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .stylegan2 import compute_dtype
 
 # (name, out_channels, pool_before): the VGG16 conv layout.
 _VGG_LAYOUT: List[Tuple[str, int, bool]] = [
@@ -111,6 +116,13 @@ def _normalize_channels(x, eps=1e-10):
     return x * torch.rsqrt(x.square().sum(dim=1, keepdim=True) + eps)
 
 
+def _normalize_channels_trunk_dtype(x, eps=1e-10):
+    """Channel normalization that keeps the map in its own dtype: the sum
+    of squares in float32, the scale applied in ``x``'s dtype."""
+    ss = x.float().square().sum(dim=1, keepdim=True)
+    return x * torch.rsqrt(ss + eps).to(x.dtype)
+
+
 def _preprocess(img_255):
     """[0, 255] RGB -> the LPIPS net's input domain; other channel counts
     are broadcast to RGB."""
@@ -138,15 +150,23 @@ def _pixel_pyramid(x) -> List[torch.Tensor]:
     return feats
 
 
-def lpips_features(params: Params, img_255: torch.Tensor) -> List[torch.Tensor]:
+def lpips_features(params: Params, img_255: torch.Tensor, dtype=torch.float32,
+                   norm: Optional[str] = None) -> List[torch.Tensor]:
     """[N, C, H, W] in [0, 255] -> the tap feature maps: channel-normalized
-    VGG activations, or, in the pixel-fallback mode, the raw pyramid."""
+    VGG activations, or, in the pixel-fallback mode, the raw pyramid.
+    ``dtype``: the VGG trunk's compute dtype (a torch dtype, a name or None
+    for float32). ``norm``: "f32" (None) normalizes float32 copies of the
+    tap maps; "trunk" keeps them in the trunk's dtype."""
     if "conv1_1" not in params:
         x = img_255.float() / 127.5 - 1.0
         if x.shape[1] != 3:
             x = x.mean(dim=1, keepdim=True).repeat(1, 3, 1, 1)
         return _pixel_pyramid(x)
-    feats = _vgg_features(params, _preprocess(img_255))
+    dtype = compute_dtype(dtype)
+    x = _preprocess(img_255)
+    feats = _vgg_features(params, x.to(dtype))
+    if dtype != torch.float32 and norm == "trunk":
+        return [_normalize_channels_trunk_dtype(f) for f in feats]
     return [_normalize_channels(f.float()) for f in feats]
 
 
@@ -159,7 +179,10 @@ def lpips_distance_from_features(params: Params, f0, f1) -> torch.Tensor:
     return total
 
 
-def lpips_distance(params: Params, img0_255, img1_255) -> torch.Tensor:
-    """Perceptual distance per pair: [N, C, H, W] in [0, 255] -> [N]."""
+def lpips_distance(params: Params, img0_255, img1_255, dtype=torch.float32,
+                   norm: Optional[str] = None) -> torch.Tensor:
+    """Perceptual distance per pair: [N, C, H, W] in [0, 255] -> [N]
+    (float32); ``dtype`` and ``norm`` as for ``lpips_features``."""
     return lpips_distance_from_features(
-        params, lpips_features(params, img0_255), lpips_features(params, img1_255))
+        params, lpips_features(params, img0_255, dtype, norm),
+        lpips_features(params, img1_255, dtype, norm))

@@ -12,10 +12,17 @@ OIHW ([k, k, I, O] there). ``snapshot.gmain_from_params`` and
 ``snapshot.discriminator_from_params`` carry a JAX parameter tree across.
 
 Parameters keep the dtype they were loaded with (the CelebA snapshot stores
-float16) while activations run in float32 (the JAX package's bf16 compute
-knob is not ported yet). Scalings of a
-parameter by a Python constant round in the parameter's dtype, as JAX's weak
-typing does (``_scale``), so the port computes what the JAX package computes.
+float16) while activations run in each network's compute ``dtype``, float32
+unless the caller asks for bfloat16 (``GMain.create(dtype=...)``,
+``Discriminator(dtype=...)``), with the JAX package's float32 islands: the
+latent normalization, the style dense layer, demodulation, the
+minibatch-stddev statistics and GMain's dlatents. Scalings of a parameter by
+a Python constant round in the parameter's dtype, as JAX's weak typing does
+(``_scale``); the resnet sum's scaling by ``np.float32(1 / sqrt(2))`` is not
+weakly typed in JAX and promotes a bfloat16 sum to float32
+(``_scale_promoted``): the blocks of a resnet G or D after its first
+residual sum compute in float32. So the port computes what the JAX package
+computes.
 
 Fresh parameters come from ``init(generator)`` of each network, as from the
 JAX package's ``init(rng)``: the same names, shapes and float32 dtype, zeros
@@ -80,6 +87,41 @@ def _scale(t: torch.Tensor, s: float) -> torch.Tensor:
     """``t * s`` with ``s`` rounded to ``t``'s dtype first, as JAX multiplies
     an array by a Python float."""
     return t * torch.tensor(s, dtype=t.dtype, device=t.device)
+
+
+def _scale_promoted(t: torch.Tensor, s: float) -> torch.Tensor:
+    """``t * np.float32(s)`` as JAX computes it: a numpy scalar is not weakly
+    typed, so a bfloat16 or float16 ``t`` is promoted to float32 first."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return _scale(t, s)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A compute dtype given as a name ("bfloat16"), a torch dtype or None
+    (float32)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "__name__", str(dtype))
+    resolved = getattr(torch, name, None)
+    if not isinstance(resolved, torch.dtype) or not resolved.is_floating_point:
+        raise ValueError(f"compute dtype {dtype!r} is not a floating-point dtype")
+    return resolved
+
+
+def dtype_name(dtype) -> str:
+    """The name a network's config stores for its compute dtype."""
+    return str(compute_dtype(dtype)).rsplit(".", 1)[1]
+
+
+def set_compute_dtype(net: nn.Module, dtype) -> None:
+    """Make ``net`` (a ``GMain``, or a ``Discriminator``) compute in
+    ``dtype``, as ``create(dtype=...)`` would have made it; the parameters
+    keep their dtype."""
+    for m in (net.mapping, net.synthesis) if isinstance(net, GMain) else (net,):
+        m.dtype = compute_dtype(dtype)
 
 
 def _dense(x, w, lrmul=1.0, gain=1.0):
@@ -169,7 +211,7 @@ class GMapping(nn.Module):
     def __init__(self, latent_size=512, label_size=0, dlatent_size=512,
                  dlatent_broadcast=None, mapping_layers=8, mapping_fmaps=512,
                  mapping_lrmul=0.01, mapping_nonlinearity="lrelu",
-                 normalize_latents=True, init_mul=1.0):
+                 normalize_latents=True, init_mul=1.0, dtype="float32"):
         super().__init__()
         self.latent_size = latent_size
         self.label_size = label_size
@@ -180,12 +222,14 @@ class GMapping(nn.Module):
         self.mapping_nonlinearity = mapping_nonlinearity
         self.normalize_latents = normalize_latents
         self.init_mul = init_mul
+        self.dtype = compute_dtype(dtype)
         self.config = dict(
             latent_size=latent_size, label_size=label_size, dlatent_size=dlatent_size,
             dlatent_broadcast=dlatent_broadcast, mapping_layers=mapping_layers,
             mapping_fmaps=mapping_fmaps, mapping_lrmul=mapping_lrmul,
             mapping_nonlinearity=mapping_nonlinearity,
-            normalize_latents=normalize_latents, init_mul=init_mul, dtype="float32")
+            normalize_latents=normalize_latents, init_mul=init_mul,
+            dtype=dtype_name(dtype))
         in_dim = latent_size
         for i in range(mapping_layers):
             out_dim = dlatent_size if i == mapping_layers - 1 else mapping_fmaps
@@ -203,9 +247,11 @@ class GMapping(nn.Module):
         return self
 
     def forward(self, latents, labels=None, impl="cuda"):
-        x = latents.float()
-        if self.normalize_latents:
-            x = x * torch.rsqrt(x.square().mean(dim=1, keepdim=True) + 1e-8)
+        x = latents.to(self.dtype)
+        if self.normalize_latents:  # in float32, back to the compute dtype
+            x32 = x.float()
+            x = (x32 * torch.rsqrt(x32.square().mean(dim=1, keepdim=True) + 1e-8)
+                 ).to(self.dtype)
         for i in range(self.mapping_layers):
             p = getattr(self, f"Dense{i}")
             x = _dense(x, p.weight, lrmul=self.mapping_lrmul)
@@ -223,13 +269,15 @@ class GSynthesis(nn.Module):
     def __init__(self, dlatent_size=512, num_channels=3, resolution=1024,
                  fmap_base=16 << 10, fmap_decay=1.0, fmap_min=1, fmap_max=512,
                  architecture="skip", nonlinearity="lrelu",
-                 resample_kernel: Sequence[int] = (1, 3, 3, 1), init_mul=1.0):
+                 resample_kernel: Sequence[int] = (1, 3, 3, 1), init_mul=1.0,
+                 dtype="float32"):
         super().__init__()
         if architecture not in ("orig", "skip", "resnet"):
             raise ValueError(f"unknown architecture {architecture!r}")
         rlog2 = int(np.log2(resolution))
         if resolution != 2 ** rlog2 or resolution < 4:
             raise ValueError(f"resolution must be a power of 2 >= 4, got {resolution}")
+        self.dtype = compute_dtype(dtype)
         self.resolution_log2 = rlog2
         self.resolution = resolution
         self.num_channels = num_channels
@@ -242,7 +290,8 @@ class GSynthesis(nn.Module):
             dlatent_size=dlatent_size, num_channels=num_channels, resolution=resolution,
             fmap_base=fmap_base, fmap_decay=fmap_decay, fmap_min=fmap_min,
             fmap_max=fmap_max, architecture=architecture, nonlinearity=nonlinearity,
-            resample_kernel=tuple(resample_kernel), init_mul=init_mul, dtype="float32")
+            resample_kernel=tuple(resample_kernel), init_mul=init_mul,
+            dtype=dtype_name(dtype))
 
         def n(stage):
             return nf(stage, fmap_base, fmap_decay, fmap_min, fmap_max)
@@ -318,7 +367,7 @@ class GSynthesis(nn.Module):
             raise ValueError("randomize_noise=False needs the noise images")
         rk = self.resample_kernel
         batch = dlatents.shape[0]
-        dlatents = dlatents.float()
+        dlatents = dlatents.to(self.dtype)
 
         def layer(x, p, layer_idx, up=False):
             x = _modulated_conv2d(x, dlatents[:, layer_idx], p, up=up,
@@ -339,7 +388,7 @@ class GSynthesis(nn.Module):
             return t if y is None else y + t
 
         b4 = getattr(self, "4x4")
-        x = b4.Const.const.float().repeat(batch, 1, 1, 1)
+        x = b4.Const.const.to(self.dtype).repeat(batch, 1, 1, 1)
         x = layer(x, b4.Conv, 0)
         y = None
         if self.architecture == "skip":
@@ -352,7 +401,7 @@ class GSynthesis(nn.Module):
             if self.architecture == "resnet":
                 t = _conv2d(t, blk.Skip.weight, up=True, resample_kernel=rk,
                             impl=impl)
-                x = _scale(x + t, 1 / np.sqrt(2))
+                x = _scale_promoted(x + t, 1 / np.sqrt(2))
             if self.architecture == "skip":
                 y = upsample2d(y, rk, impl=impl)
             if self.architecture == "skip" or res == self.resolution_log2:
@@ -399,20 +448,17 @@ class GMain(nn.Module):
                mapping_layers=8, mapping_fmaps=512, dtype="float32",
                **_kwargs) -> "GMain":
         """The generator of the JAX package's ``GMain.create``, with zero
-        placeholder parameters until ``init`` or a snapshot fills them."""
-        if dtype not in ("float32", torch.float32):
-            raise NotImplementedError(
-                f"GMain dtype={dtype!r}: the bf16 compute knob is not ported yet "
-                "(ROADMAP.md, queue 1 item 2)")
+        placeholder parameters until ``init`` or a snapshot fills them;
+        ``dtype`` is the compute dtype of mapping and synthesis."""
         synthesis = GSynthesis(dlatent_size=dlatent_size, num_channels=num_channels,
                                resolution=resolution, fmap_base=fmap_base,
                                fmap_max=fmap_max, architecture=architecture,
-                               init_mul=init_mul)
+                               init_mul=init_mul, dtype=dtype)
         mapping = GMapping(latent_size=latent_size, label_size=label_size,
                            dlatent_size=dlatent_size,
                            dlatent_broadcast=synthesis.num_layers,
                            mapping_layers=mapping_layers, mapping_fmaps=mapping_fmaps,
-                           init_mul=init_mul)
+                           init_mul=init_mul, dtype=dtype)
         return GMain(mapping, synthesis, truncation_psi=truncation_psi,
                      truncation_cutoff=truncation_cutoff,
                      dlatent_avg_beta=dlatent_avg_beta,
@@ -528,7 +574,8 @@ class Discriminator(nn.Module):
                  architecture="resnet", nonlinearity="lrelu",
                  mbstd_group_size=6, mbstd_num_features=1,
                  mbstd_contiguous=False,
-                 resample_kernel: Sequence[int] = (1, 3, 3, 1), init_mul=1.0):
+                 resample_kernel: Sequence[int] = (1, 3, 3, 1), init_mul=1.0,
+                 dtype="float32"):
         super().__init__()
         if architecture not in ("orig", "skip", "resnet"):
             raise ValueError(f"unknown architecture {architecture!r}")
@@ -544,13 +591,14 @@ class Discriminator(nn.Module):
         self.mbstd_contiguous = mbstd_contiguous
         self.resample_kernel = list(resample_kernel)
         self.init_mul = init_mul
+        self.dtype = compute_dtype(dtype)
         self.config = dict(
             num_channels=num_channels, resolution=resolution, label_size=label_size,
             fmap_base=fmap_base, fmap_decay=fmap_decay, fmap_min=fmap_min,
             fmap_max=fmap_max, architecture=architecture, nonlinearity=nonlinearity,
             mbstd_group_size=mbstd_group_size, mbstd_num_features=mbstd_num_features,
             mbstd_contiguous=mbstd_contiguous, resample_kernel=tuple(resample_kernel),
-            init_mul=init_mul, dtype="float32")
+            init_mul=init_mul, dtype=dtype_name(dtype))
 
         def n(stage):
             return nf(stage, fmap_base, fmap_decay, fmap_min, fmap_max)
@@ -605,7 +653,7 @@ class Discriminator(nn.Module):
                           impl=impl)
             return t if x is None else x + t
 
-        y = images.float()
+        y = images.to(self.dtype)
         feat(y)
         x = None
         for res in range(self.resolution_log2, 2, -1):
@@ -622,7 +670,7 @@ class Discriminator(nn.Module):
             if self.architecture == "resnet":
                 t = _conv2d(t, blk.Skip.weight, down=True, resample_kernel=rk,
                             impl=impl)
-                x = _scale(x + t, 1 / np.sqrt(2))
+                x = _scale_promoted(x + t, 1 / np.sqrt(2))
             feat(x)
             if self.architecture == "skip":
                 y = downsample2d(y, rk, impl=impl)

@@ -54,7 +54,7 @@ class Recorder:
     def __init__(self, ck, names=("bias_lrelu", "upfirdn2d")):
         self.ck = ck
         self.calls = {name: [] for name in names}
-        self.dtypes = {name: set() for name in names}
+        self.call_dtypes = {name: [] for name in names}  # one per call
 
     def __enter__(self):
         self.orig = {name: getattr(self.ck, name) for name in self.calls}
@@ -67,7 +67,7 @@ class Recorder:
             key = tuple(tuple(map(tuple, a)) if isinstance(a, np.ndarray)
                         else a for a in args if not hasattr(a, "data_ptr"))
             self.calls[name].append((tuple(x.shape), key + tuple(kwargs.values())))
-            self.dtypes[name].add(x.dtype)
+            self.call_dtypes[name].append(x.dtype)
             return fn(x, *args, **kwargs)
         return call
 
@@ -75,8 +75,18 @@ class Recorder:
         for name, fn in self.orig.items():
             setattr(self.ck, name, fn)
 
+    @property
+    def dtypes(self):
+        """The input dtypes each wrapper saw."""
+        return {name: set(d) for name, d in self.call_dtypes.items()}
+
     def unique(self, name):
         return list(dict.fromkeys(self.calls[name]))
+
+    def unique_typed(self, name):
+        """The distinct (shape, arguments, dtype) of the calls."""
+        return list(dict.fromkeys((shape, key, dtype) for (shape, key), dtype
+                                  in zip(self.calls[name], self.call_dtypes[name])))
 
 
 def fir_out_hw(shape, f, up, down, pad):

@@ -1,7 +1,8 @@
 """Where the time of one training iteration goes on the card.
 
 Resumes a ``network_snapshot.v1`` pickle as a training state (weights cast
-to float32), then runs iterations of ``train_step`` on synthetic uint8 reals
+to float32; ``--dtype bfloat16`` computes G, D and the LPIPS trunk in bf16,
+as a fresh ``run_training.py --dtype bfloat16`` run does), then runs iterations of ``train_step`` on synthetic uint8 reals
 under ``torch.profiler`` after a warm-up, and prints the wall time, the
 device's busy share and the kernels' device time by group (the port's
 kernels, convolutions, matrix products, the rest), as
@@ -10,7 +11,8 @@ kernels, convolutions, matrix products, the rest), as
     python -m inclusivegan_torch.profile_train \
         [--network artifacts/celeba_best_weights_fp16.pkl] \
         [--lpips artifacts/celeba_perceptual_vgg.npz] [--minibatch 6] \
-        [--iterations 2] [--no-reg] [--impl cuda|plain] [--trace FILE]
+        [--iterations 2] [--no-reg] [--impl cuda|plain] \
+        [--dtype float32|bfloat16] [--trace FILE]
 """
 
 import argparse
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .models.lpips import load_lpips_params
+from .models.stylegan2 import set_compute_dtype
 from .profile_generate import report
 from .snapshot import load_networks
 from .training.train_state import create_train_state
@@ -48,6 +51,8 @@ def main(argv=None):
     parser.add_argument("--no-reg", action="store_true",
                         help="run the iterations without the lazy regularizers")
     parser.add_argument("--impl", default="cuda", choices=("cuda", "plain"))
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="compute dtype of G, D and the LPIPS trunk")
     parser.add_argument("--trace", default=None,
                         help="write a Chrome trace of the window here")
     args = parser.parse_args(argv)
@@ -59,8 +64,9 @@ def main(argv=None):
     G, D, Gs = load_networks(args.network, device="cuda")
     for net in (G, D, Gs):
         net.float()
+        set_compute_dtype(net, args.dtype)
     state = create_train_state(G, D, Gs)
-    cfg = TrainConfig(gamma=100.0, mirror_augment=True)
+    cfg = TrainConfig(gamma=100.0, mirror_augment=True, lpips_dtype=args.dtype)
     step = make_train_step(G, D, load_lpips_params(args.lpips, device="cuda"), cfg,
                            device="cuda", impl=args.impl)
     batch = synthetic_batch(args.minibatch, G.synthesis.resolution,
@@ -78,7 +84,7 @@ def main(argv=None):
                             do_d_reg=reg)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    print(f"{torch.cuda.get_device_name(0)}: train_step impl={args.impl}, "
+    print(f"{torch.cuda.get_device_name(0)}: train_step impl={args.impl} {args.dtype}, "
           f"minibatch {args.minibatch}, {args.iterations} iterations "
           f"{'with' if reg else 'without'} the lazy regularizers")
     print(f"wall {wall_ms:.3f} ms ({wall_ms / args.iterations:.3f} ms per iteration)")

@@ -7,18 +7,23 @@ and the same keyword arguments for the loop, which it submits as
 
 ``main`` switches TF32 off for cuDNN's convolutions and for matrix products
 before anything loads, so that the card computes in float32 as the JAX
-package does; the IMLE retrieval relies on it. ``--metrics`` defaults to
-``none``: the metrics are not ported yet, and naming one raises
-``NotImplementedError`` before the run starts, as do ``--dtype bfloat16``,
-``--invariant-rng true``, ``--knn-backend dci`` and ``--num-gpus`` over 1
-(each names its ``ROADMAP.md`` item; an ``auto`` backend over the exact
-budget, and a minibatch that needs gradient accumulation, are refused by the
-loop before it builds the networks).
+package does; the IMLE retrieval relies on it. ``--dtype bfloat16`` computes
+G, D and the LPIPS trunk in bfloat16 from a fresh init (the JAX package's
+float32 islands kept). ``--metrics`` takes the registry's names (default
+``none``) and runs them at every network snapshot: FID and IS are ported;
+another metric of the registry raises ``NotImplementedError`` before the run
+starts, as do ``--invariant-rng true``, ``--knn-backend dci`` and
+``--num-gpus`` over 1 (each names its ``ROADMAP.md`` item; an ``auto``
+backend over the exact budget, and a minibatch that needs gradient
+accumulation, are refused by the loop before it builds the networks).
+
+The CelebA production run (``scripts/run_celeba_quality_loop.sh``):
 
     python -m inclusivegan_torch.run_training --data-dir DIR --dataset NAME \\
-        --config config-e-Gskip-Dresnet --mirror-augment true \\
-        --init-proj-dim 512 --candidate-batch-size 1024 \\
-        --lpips-weights artifacts/celeba_perceptual_vgg.npz --metrics none
+        --config config-e-Gskip-Dresnet --num-gpus 1 --data-size 30000 \\
+        --metrics fid30k --mirror-augment true --init-proj-dim 512 \\
+        --candidate-batch-size 1024 \\
+        --lpips-weights artifacts/celeba_perceptual_vgg.npz --dtype bfloat16
 """
 
 import argparse
@@ -27,6 +32,7 @@ import sys
 
 import torch
 
+from .metrics.metric_defaults import metric_args
 from .utils.easydict import EasyDict
 from .utils.run_harness import SubmitConfig, submit_run
 
@@ -39,14 +45,7 @@ _valid_configs = [
 ]
 
 
-def _refuse_unported(num_devices, metrics, dtype, invariant_rng, knn_backend):
-    if metrics:
-        raise NotImplementedError(
-            f"metrics {metrics} are not ported yet (ROADMAP.md, queue 1 item 3); "
-            "pass --metrics none")
-    if dtype != "float32":
-        raise NotImplementedError(f"--dtype {dtype}: the bf16 compute knob is not "
-                                  "ported yet (ROADMAP.md, queue 1 item 2)")
+def _refuse_unported(num_devices, invariant_rng, knn_backend):
     if invariant_rng:
         raise NotImplementedError("--invariant-rng is not ported yet (ROADMAP.md, "
                                   "queue 1 item 4)")
@@ -70,10 +69,15 @@ def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
         network_snapshot_ticks=None, invariant_rng=False,
         enable_profiler=False, g_loss_batched=None, lpips_norm=None,
         seed=None, device="cuda"):
-    _refuse_unported(num_devices, metrics, dtype, invariant_rng, knn_backend)
+    _refuse_unported(num_devices, invariant_rng, knn_backend)
+    metrics = metric_args(metrics)
     train = EasyDict()
     G = EasyDict(init_mul=init_mul)
     D = EasyDict(init_mul=init_mul)
+    if dtype != "float32":
+        # bfloat16 activations; parameters, optimizer and the reductions
+        # that the networks keep in float32 stay float32
+        G.dtype = D.dtype = dtype
     G_opt = EasyDict(beta1=0.0, beta2=0.99, epsilon=1e-8)
     D_opt = EasyDict(beta1=0.0, beta2=0.99, epsilon=1e-8)
     G_loss = EasyDict(NN_rec_lpips_weight=NN_rec_lpips_weight)
@@ -162,7 +166,7 @@ def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
     kwargs.update(G_args=G, D_args=D, G_opt_args=G_opt, D_opt_args=D_opt,
                   G_loss_args=G_loss, D_loss_args=D_loss,
                   dataset_args=dataset_args, sched_args=sched,
-                  grid_args=grid, metric_arg_list=[],
+                  grid_args=grid, metric_arg_list=metrics,
                   data_dir=data_dir, num_devices=num_devices, device=device)
     sc.run_dir_root = result_dir
     sc.run_desc = desc
@@ -190,8 +194,8 @@ def parse_args(argv=None) -> dict:
     """The command line as ``run()``'s keyword arguments."""
     parser = argparse.ArgumentParser(
         description="Train StyleGAN2 with IMLE (PyTorch/CUDA port, one card). "
-        "Computes in float32: TF32 is switched off for convolutions and matrix "
-        "products.",
+        "Computes in float32, TF32 is switched off for convolutions and matrix "
+        "products, unless --dtype bfloat16.",
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--result-dir", default="results", metavar="DIR")
     parser.add_argument("--data-dir", required=True)
@@ -206,8 +210,9 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--mirror-augment", default=False, metavar="BOOL",
                         type=_str_to_bool)
     parser.add_argument("--metrics", default="none", type=_parse_comma_sep,
-                        help="none: the metrics are not ported yet, and naming "
-                             "one raises NotImplementedError before the run")
+                        help="none (default) or comma-separated registry names, "
+                             "run at every network snapshot; ported: fid30k, "
+                             "fid10k, is50k, dummy")
     parser.add_argument("--minibatch-gpu", metavar="N", default=6, type=int)
     parser.add_argument("--data-size", metavar="N", default=30000, type=int)
     parser.add_argument("--num-epochs", metavar="N", default=10000, type=int)
@@ -235,7 +240,7 @@ def parse_args(argv=None) -> dict:
                              "dir, or run dir)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="activation dtype; bfloat16 is not ported yet")
+                        help="activation dtype of G, D and the LPIPS trunk")
     parser.add_argument("--seed", default=None, type=int, metavar="N",
                         help="training_loop seed (numpy and every torch "
                              "generator; default 1000)")
@@ -252,8 +257,9 @@ def parse_args(argv=None) -> dict:
                         help="one G forward and one LPIPS pass for the G "
                              "phase's four and six (default: the loop's)")
     parser.add_argument("--lpips-norm", default=None, choices=("f32", "trunk"),
-                        help="LPIPS tap normalization layout; trunk comes with "
-                             "the bf16 knob")
+                        help="LPIPS tap normalization: f32 (default) normalizes "
+                             "float32 copies of the tap maps, trunk keeps them in "
+                             "the trunk's dtype")
     parser.add_argument("--enable-profiler", default=False, metavar="BOOL",
                         type=_str_to_bool,
                         help="torch.profiler trace of iterations 8-16 into "

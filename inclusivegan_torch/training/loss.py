@@ -70,13 +70,16 @@ def g_main_loss(G, D, lpips_params, *, draws: Draws,
                 latents_rec_1, reals_rec_1, labels_rec_1,
                 latents_rec_2, reals_rec_2, labels_rec_2,
                 arb_latents, arb_labels, NN_rec_lpips_weight: float = 2.5,
+                lpips_dtype=torch.float32, lpips_norm=None,
                 batched: bool = True, impl: str = "cuda") -> GLossOut:
     """Main (non-lazy) G loss: rec-LPIPS + interp-LPIPS + adversarial NS.
 
     ``batched=True`` (the production form) maps four groups of latents with
     their own mixing draws, synthesizes the 4n images in one call and runs
     the five LPIPS image stacks through one VGG call; ``batched=False`` runs
-    four G forwards and six LPIPS evaluations, as the reference does."""
+    four G forwards and six LPIPS evaluations, as the reference does.
+    ``lpips_dtype`` and ``lpips_norm``: the VGG trunk's compute dtype and
+    tap normalization (``models.lpips.lpips_features``)."""
     t = draws["t"].to(latents_rec_1.device)
     interp_latents = slerp(latents_rec_2, latents_rec_1, t)
     interp_labels = (lerp(labels_rec_2, labels_rec_1, t) if labels_rec_1.numel()
@@ -94,12 +97,13 @@ def g_main_loss(G, D, lpips_params, *, draws: Draws,
             imgs.append(img)
             avgs.append(avg)
         rec1, rec2, interp, arb = imgs
-        loss_rec = 0.5 * (
-            lpips_distance(lpips_params, _to_255(rec1), _to_255(reals_rec_1)) +
-            lpips_distance(lpips_params, _to_255(rec2), _to_255(reals_rec_2))) \
+        def lpips(a, b):
+            return lpips_distance(lpips_params, _to_255(a), _to_255(b),
+                                  lpips_dtype, lpips_norm)
+
+        loss_rec = 0.5 * (lpips(rec1, reals_rec_1) + lpips(rec2, reals_rec_2)) \
             * NN_rec_lpips_weight
-        d2 = lpips_distance(lpips_params, _to_255(interp), _to_255(reals_rec_2))
-        d1 = lpips_distance(lpips_params, _to_255(interp), _to_255(reals_rec_1))
+        d2, d1 = lpips(interp, reals_rec_2), lpips(interp, reals_rec_1)
     else:
         dlats, avgs = [], []
         for (z, labels), mixing in zip(groups, draws["mixing"]):
@@ -111,7 +115,7 @@ def g_main_loss(G, D, lpips_params, *, draws: Draws,
         rec1, rec2, interp, arb = torch.chunk(imgs, 4)
         stack = torch.cat([_to_255(rec1), _to_255(rec2), _to_255(interp),
                            _to_255(reals_rec_1), _to_255(reals_rec_2)])
-        feats = lpips_features(lpips_params, stack)
+        feats = lpips_features(lpips_params, stack, lpips_dtype, lpips_norm)
         f_rec1, f_rec2, f_interp, f_real1, f_real2 = zip(
             *(torch.chunk(f, 5) for f in feats))
 

@@ -31,12 +31,6 @@ _LATER = {
                       "(ROADMAP.md, queue 1 item 4)"),
     "grad_accum_rounds": ((1,), "gradient accumulation comes in a later slice "
                           "(ROADMAP.md, queue 1 item 4)"),
-    "lpips_dtype": ((None, torch.float32, "float32"),
-                    "the LPIPS trunk dtype comes with the bf16 compute knob "
-                    "(ROADMAP.md, queue 1 item 2)"),
-    "lpips_norm": ((None, "f32"),
-                   "lpips_norm='trunk' comes with the bf16 compute knob "
-                   "(ROADMAP.md, queue 1 item 2)"),
 }
 # Fields of the JAX TrainConfig that mean nothing here and are accepted at
 # any value: the port updates the state in place already.
@@ -57,15 +51,17 @@ class _Fields(NamedTuple):
     mirror_augment: bool = False
     drange_data: Tuple[float, float] = (0.0, 255.0)
     lazy_regularization: bool = True
+    lpips_dtype: Any = None  # the LPIPS trunk's compute dtype; None: float32
+    lpips_norm: Any = None  # "f32" (None) or "trunk": models.lpips.lpips_features
     g_loss_batched: bool = True
 
 
 class TrainConfig(_Fields):
     """The hyperparameters of the step that this slice honours. The JAX
-    package's other fields (``invariant_rng``, ``grad_accum_rounds``,
-    ``lpips_dtype``, ``lpips_norm``) are accepted at their neutral values
-    and raise ``NotImplementedError`` otherwise; ``donate_state`` is
-    accepted either way, since the port updates the state in place."""
+    package's other fields (``invariant_rng``, ``grad_accum_rounds``) are
+    accepted at their neutral values and raise ``NotImplementedError``
+    otherwise; ``donate_state`` is accepted either way, since the port
+    updates the state in place."""
     __slots__ = ()
 
     def __new__(cls, *args, **kwargs):
@@ -189,7 +185,8 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
             labels_rec_2=batch["labels_rec_2"],
             arb_latents=draws["arb_latents"].to(device),
             arb_labels=torch.zeros((mb, label_size), device=device),
-            NN_rec_lpips_weight=rec_w, batched=cfg.g_loss_batched, impl=impl)
+            NN_rec_lpips_weight=rec_w, lpips_dtype=cfg.lpips_dtype or torch.float32,
+            lpips_norm=cfg.lpips_norm, batched=cfg.g_loss_batched, impl=impl)
         g_loss = out.loss.mean()
         grads = _grads(g_loss, g_trainables(params_of(state.G)))
         state = g_adam(state, grads, g_lrate)

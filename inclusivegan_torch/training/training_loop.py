@@ -6,8 +6,10 @@ The run dir gets what the JAX loop writes: ``log.txt`` (through the run
 harness), ``stats.jsonl`` and TensorBoard events, the ``arb-reals.png`` /
 ``arb-fakes-%06d.png`` / ``rec-reals.png`` / ``rec-fakes-%06d.png`` grids,
 ``network-snapshot-%06d.pkl`` with a full-state checkpoint beside it
-(``checkpoints/step_%08d``) and ``network-final.pkl``; an ``abort.txt``
-stops the run at the next outer iteration.
+(``checkpoints/step_%08d``) and ``network-final.pkl``, and, after each
+network snapshot, the line of each metric of ``metric_arg_list`` in
+``metric-<name>.txt`` (a metric that fails is printed and training goes on);
+an ``abort.txt`` stops the run at the next outer iteration.
 
 The control flow is the JAX loop's: the schedule per outer iteration of
 ``minibatch_repeats`` steps, the lazy-regularizer cadence from the running
@@ -20,15 +22,21 @@ as there (``np.random.seed(seed)``); the card's comes from explicit
 init ``seed``, the steps ``seed + 11``, candidate generation ``seed + 7``,
 the snapshot grids ``seed + 13`` and the grid latents ``seed + 17``.
 
+``G_args.dtype`` and ``D_args.dtype`` ("bfloat16") set the networks'
+compute dtype on a fresh init, and ``G_args.dtype`` the LPIPS trunk's. A
+resume from a snapshot, as in the JAX package, builds G and D from the
+snapshot's configs without their dtype: they compute in float32 while
+LPIPS keeps ``G_args.dtype``.
+
 The loss scalars stay on the card and are read to the host only where the
 JAX loop reads them (iterations 1, 2 and every 8th). Batches are assembled
 as numpy arrays, inline or on the prefetcher's thread, and copied to the
 card by the train step on this thread. The card's peak memory
 (``torch.cuda.max_memory_allocated``) is reported at each tick.
 
-Not ported yet, and refused before anything runs: the bf16 compute knob,
-gradient accumulation and ``invariant_rng``, the DCI backend, more than one
-device, and the metrics (``ROADMAP.md`` queue 1).
+Not ported yet, and refused before anything runs: gradient accumulation
+and ``invariant_rng``, the DCI backend, more than one device, and the
+metrics other than FID and IS (``ROADMAP.md`` queue 1).
 """
 
 import os
@@ -40,6 +48,7 @@ import torch
 
 from ..data.dataset import Prefetcher, load_dataset
 from ..data.dataset_tool import load_celeba_attributes
+from ..metrics.metric_defaults import check_metric_args
 from ..models.lpips import get_lpips_params
 from ..models.stylegan2 import Discriminator, GMain
 from ..snapshot import load_networks, snapshot_dict
@@ -83,18 +92,9 @@ def load_snapshot(path: str, device="cuda"):
                   for name, m in (("g_params", G), ("d_params", D), ("gs_params", Gs))}
 
 
-def _refuse_unported(G_args, D_args, num_devices, invariant_rng, knn_backend,
-                     metric_arg_list, lpips_norm):
+def _refuse_unported(num_devices, invariant_rng, knn_backend, metric_arg_list):
     """Raise NotImplementedError for what the port does not do yet, each
     with its ``ROADMAP.md`` item, before anything loads."""
-    for name, args in (("G_args", G_args), ("D_args", D_args)):
-        if args.get("dtype", "float32") not in ("float32", torch.float32):
-            raise NotImplementedError(
-                f"{name}.dtype={args['dtype']!r}: the bf16 compute knob is not "
-                "ported yet (ROADMAP.md, queue 1 item 2)")
-    if lpips_norm not in (None, "f32"):
-        raise NotImplementedError(f"lpips_norm={lpips_norm!r} comes with the bf16 "
-                                  "compute knob (ROADMAP.md, queue 1 item 2)")
     if invariant_rng:
         raise NotImplementedError("invariant_rng is not ported yet (ROADMAP.md, "
                                   "queue 1 item 4)")
@@ -105,10 +105,7 @@ def _refuse_unported(G_args, D_args, num_devices, invariant_rng, knn_backend,
         raise NotImplementedError(f"num_devices={num_devices}: training on more "
                                   "than one card is not ported yet (ROADMAP.md, "
                                   "queue 1 item 6)")
-    if metric_arg_list:
-        names = [m.get("name", "?") for m in metric_arg_list]
-        raise NotImplementedError(f"metrics {names} are not ported yet "
-                                  "(ROADMAP.md, queue 1 item 3)")
+    check_metric_args(metric_arg_list)
 
 
 def training_loop(
@@ -158,7 +155,8 @@ def training_loop(
     dist_thres_percentile: float = 100.0,
     attr_interesting: Optional[str] = None,
     lpips_weights_path: Optional[str] = None,
-    lpips_norm: Optional[str] = None,  # "f32" only, until the bf16 knob
+    lpips_norm: Optional[str] = None,  # "f32" (default) or "trunk": the LPIPS
+    # tap maps normalized in float32 or in the trunk's dtype
     image_snapshot_ticks: Optional[int] = None,
     network_snapshot_ticks: Optional[int] = None,
     num_devices: Optional[int] = None,
@@ -174,9 +172,7 @@ def training_loop(
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to train "
                            "on the CPU")
-    _refuse_unported(G_args, D_args, num_devices, invariant_rng, knn_backend,
-                     metric_arg_list, lpips_norm)
-    D_args = {k: v for k, v in D_args.items() if k != "dtype"}
+    _refuse_unported(num_devices, invariant_rng, knn_backend, metric_arg_list)
 
     # ------------------------------------------------------------ datasets
     # Both streams iterate in a fixed order: the IMLE cursor arithmetic
@@ -484,6 +480,11 @@ def training_loop(
                                     "staleness": int(imle.staleness)},
                         step=cur_nimg)
                     stats.report("Timing/checkpoint_sec", time.time() - t0)
+                if metric_arg_list:
+                    t0 = time.time()
+                    _run_metrics(metric_arg_list, path, dataset_args, data_dir, run_dir,
+                                 mirror_augment, dev)
+                    stats.report("Timing/metrics_sec", time.time() - t0)
 
     _stop_prefetcher()
     if profiler is not None:
@@ -496,6 +497,21 @@ def training_loop(
     if ctx is not None:
         ctx.close()
     return state
+
+
+def _run_metrics(metric_arg_list, snapshot_path, dataset_args, data_dir, run_dir,
+                 mirror_augment, dev):
+    """Each metric on the snapshot just written; a metric that fails is
+    printed, and training goes on."""
+    from ..metrics import metric_base
+    for args in metric_arg_list:
+        try:
+            metric_base.run_metric(args, network_pkl=snapshot_path,
+                                   dataset_args=dataset_args, data_dir=data_dir,
+                                   run_dir=run_dir, mirror_augment=mirror_augment,
+                                   device=dev)
+        except Exception as e:  # metrics must not stop training
+            print(f"metric {args.get('name', '?')} failed: {e}")
 
 
 def _sample(Gs, z, label_size, psi, generator, dev, bs=None):

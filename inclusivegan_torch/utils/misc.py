@@ -3,8 +3,11 @@
 
 ``save_image_grid`` writes its PNG with ``write_png`` below (``zlib`` and
 ``struct``, no Pillow): the machines the port trains on need not have it.
+``parse_config_for_previous_run`` and ``apply_mirror_augment`` serve the
+metrics.
 """
 
+import os
 import pickle
 import re
 import struct
@@ -52,6 +55,30 @@ def slerp_np(a: np.ndarray, b: np.ndarray, t) -> np.ndarray:
     c = normalize(b64 - d * a64)
     out = a64 * np.cos(p) + c * np.sin(p)
     return normalize(out).astype(a.dtype)
+
+
+def apply_mirror_augment(minibatch: np.ndarray,
+                         rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Flip a random half of an NCHW minibatch horizontally (a copy).
+    ``rng=None`` draws from numpy's global stream; the metrics pass a seeded
+    Generator so that cached real statistics are reproducible."""
+    rand = (np.random.rand(minibatch.shape[0]) if rng is None
+            else rng.random(minibatch.shape[0]))
+    mask = rand < 0.5
+    minibatch = np.array(minibatch)
+    minibatch[mask] = minibatch[mask, :, :, ::-1]
+    return minibatch
+
+
+def parse_config_for_previous_run(run_dir: str) -> dict:
+    """The training and dataset arguments of a run dir, from its
+    ``submit_config.pkl``: {"train": the run function's keyword arguments,
+    "dataset": their ``dataset_args``}. Unpickle only run dirs this project
+    wrote."""
+    with open(os.path.join(run_dir, "submit_config.pkl"), "rb") as f:
+        sc = pickle.load(f)
+    data = getattr(sc, "run_func_kwargs", {}) or {}
+    return dict(train=data, dataset=data.get("dataset_args", {}))
 
 
 def parse_kimg_time_from_log(log_path: str) -> Tuple[float, float]:

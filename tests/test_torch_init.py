@@ -147,5 +147,11 @@ def test_config_is_the_jax_dataclass():
 
 
 def test_create_refuses_the_bf16_knob():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tsg.GMain.create(resolution=RES, dtype="bfloat16", **NET)
+    """The bf16 knob is ported: create builds bfloat16 mapping and synthesis
+    and writes the dtype into their configs; a compute dtype that is not a
+    floating-point one is refused."""
+    G = tsg.GMain.create(resolution=RES, dtype="bfloat16", **NET)
+    assert G.mapping.dtype == G.synthesis.dtype == torch.bfloat16
+    assert G.config["mapping"]["dtype"] == G.config["synthesis"]["dtype"] == "bfloat16"
+    with pytest.raises(ValueError, match="floating-point"):
+        tsg.GMain.create(resolution=RES, dtype="int32", **NET)

@@ -81,7 +81,8 @@ def test_main_switches_tf32_off_before_the_run(monkeypatch, tmp_path):
 
 
 def test_metrics_default_to_none(monkeypatch, tmp_path):
-    """The JAX CLI defaults to fid30k; the port, with no metric yet, to none."""
+    """The JAX CLI defaults to fid30k; the port to none, so that a run
+    evaluates only the metrics it names."""
     kw = _main_kwargs(run_training, ["--data-dir", str(tmp_path), "--dataset", "x"],
                       monkeypatch)
     assert kw["metrics"] == []
@@ -92,12 +93,14 @@ def test_help_says_float32_and_metrics_none(capsys):
         run_training.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     assert "TF32 is switched off" in text
-    assert "none: the metrics are not ported yet" in text
+    assert "none (default) or comma-separated registry names" in text
+    assert "ported: fid30k, fid10k, is50k, dummy" in text
+    assert "activation dtype of G, D and the LPIPS trunk" in text
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--metrics", "fid50k"], "queue 1 item 3"),
-    (["--dtype", "bfloat16"], "queue 1 item 2"),
+    (["--metrics", "fid30k,pr50k3"], "queue 1 item 3.1"),
+    (["--metrics", "ppl_wend"], "queue 1 item 3.2"),
     (["--invariant-rng", "true"], "queue 1 item 4"),
     (["--knn-backend", "dci"], "queue 1 item 5"),
     (["--num-gpus", "2"], "queue 1 item 6"),

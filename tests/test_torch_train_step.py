@@ -234,13 +234,11 @@ def test_lazy_reg_hparams_match_jax(interval):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("invariant_rng", True), ("grad_accum_rounds", 2), ("lpips_dtype", torch.bfloat16),
-    ("lpips_norm", "trunk")])
+    ("invariant_rng", True), ("grad_accum_rounds", 2)])
 def test_unhonoured_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TrainConfig(**{field: value})
-    neutral = {"invariant_rng": False, "grad_accum_rounds": 1, "lpips_dtype": None,
-               "lpips_norm": "f32"}[field]
+    neutral = {"invariant_rng": False, "grad_accum_rounds": 1}[field]
     assert TrainConfig(**{field: neutral}) == TrainConfig()
 
 

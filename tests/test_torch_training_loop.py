@@ -16,14 +16,19 @@ real minibatches (bit for bit), rebuild the IMLE pool at the same points,
 tick at the same cur_nimg and write files of the same names."""
 
 import json
+import math
 import os
+import re
 import shutil
+import time
 
 import numpy as np
 import PIL.Image
 import pytest
 import torch
 
+from inclusivegan_torch.metrics.metric_defaults import metric_defaults
+from inclusivegan_torch.utils import misc
 from inclusivegan_torch.utils.misc import create_image_grid, save_image_grid, write_png
 from inclusivegan_torch.utils.run_harness import SubmitConfig, submit_run
 from inclusivegan_tpu.data.dataset_tool import TFRecordExporter
@@ -155,14 +160,20 @@ def test_resume_from_snapshot_reads_kimg_and_time_from_the_log(trained_run, toy_
     snap_w = snap["g_params"]["synthesis.4x4.Conv.weight"].numpy()
 
     root = str(tmp_path / "results")
+    t0 = time.time()
     state = submit_run(SubmitConfig(run_dir_root=root, run_desc="resume"), LOOP,
                        **_args(toy_dataset, total_kimg=2, smoke_test_max_iters=3, seed=99,
                                resume_pkl=pkl, save_full_checkpoints=False, device="cpu"))
+    wall = time.time() - t0
     new_run = os.path.join(root, "00000-resume")
     log = open(os.path.join(new_run, "log.txt")).read()
     assert "Loading networks from" in log
     tick = [ln for ln in log.splitlines() if ln.startswith("tick ")][0]
-    assert "kimg 1.5" in tick and "time 1m " in tick, tick  # 1500 + 16 images
+    assert "kimg 1.5" in tick, tick  # 1500 + 16 images
+    # the time column goes on from the earlier run's 65 s: at least that, at
+    # most that plus this run's own seconds (the column rounds to a second)
+    seconds = misc._time_to_seconds(re.search(r" time (.+?)\s+sec/tick", tick).group(1))
+    assert 65 <= seconds <= 65 + math.ceil(wall), (tick, wall)
     assert _stat_steps(new_run) == [1500 + 2 * MB, 1500 + 3 * MB]
     w = state.G.get_submodule("synthesis.4x4.Conv").weight.detach().numpy()
     assert 0.0 < float(np.abs(w - snap_w).max()) < 0.2
@@ -212,9 +223,11 @@ def test_default_device_needs_cuda(toy_dataset, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(G_args=dict(NETS["G_args"], dtype="bfloat16")), "queue 1 item 2"),
-    (dict(lpips_norm="trunk"), "queue 1 item 2"),
-    (dict(metric_arg_list=[dict(name="fid50k")]), "queue 1 item 3"),
+    (dict(metric_arg_list=[metric_defaults["fid30k"], metric_defaults["pr50k3"]]),
+     "queue 1 item 3.1"),
+    (dict(metric_arg_list=[metric_defaults["ls"]]), "queue 1 item 3.3"),
+    (dict(metric_arg_list=[dict(metric_defaults["fid10k"], feature_net="vgg")]),
+     "queue 1 item 3.5"),
     (dict(invariant_rng=True), "queue 1 item 4"),
     (dict(sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB // 2)),
      "queue 1 item 4"),

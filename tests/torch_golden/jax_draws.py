@@ -13,6 +13,9 @@ port's ``draws`` dicts (``inclusivegan_torch/training/train_step.py``).
 Imports JAX: used by the tests and the golden writers, never by the port.
 """
 
+import types
+
+import jax.numpy as jnp
 import numpy as np
 import torch
 from jax import random
@@ -25,13 +28,32 @@ def _np(a):
 
 
 def synthesis_noise(G, key, batch):
-    """The per-layer noise of ``GSynthesis.apply(rng=key)``, [batch, 1, h, w]."""
+    """The per-layer noise of ``GSynthesis.apply(rng=key)``, [batch, 1, h, w],
+    drawn in the layer's activation dtype (the synthesis dtype; float32
+    after a resnet G's first residual sum, which promotes) and returned as
+    float32, which holds a bfloat16 draw exactly."""
+    syn = G.synthesis
     out = {}
-    for layer_idx in range(G.synthesis.num_layers - 1):
+    for layer_idx in range(syn.num_layers - 1):
         key, k = random.split(key)
         res = 2 ** ((layer_idx + 5) // 2)
-        out[f"noise{layer_idx}"] = _np(random.normal(k, (batch, 1, res, res)))
+        dtype = syn.dtype if syn.architecture != "resnet" or layer_idx <= 2 else "float32"
+        out[f"noise{layer_idx}"] = np.array(
+            random.normal(k, (batch, 1, res, res), dtype), np.float32)
     return out
+
+
+def bf16_noise_random():
+    """``jax.random`` as the JAX stylegan2 module uses it, except that the
+    synthesis noise images ([B, 1, h, w]) are drawn in bfloat16 and cast to
+    the dtype asked for: set as ``inclusivegan_tpu.models.stylegan2.random``,
+    a float32 G sees the noise values of a bf16 G, so that the two differ
+    by their arithmetic alone."""
+    def normal(key, shape=(), dtype=jnp.float32):
+        if len(shape) == 4 and shape[1] == 1:
+            return random.normal(key, shape, jnp.bfloat16).astype(dtype)
+        return random.normal(key, shape, dtype)
+    return types.SimpleNamespace(**{**vars(random), "normal": normal})
 
 
 def mixing(G, key, batch):
