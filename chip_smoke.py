@@ -93,11 +93,36 @@ Phases, each logged with the seconds since start:
      the CelebA snapshot at 10000 fakes (exit 0, finite, the Gs's and
      InceptionV3's images/s). The metric cache lives in the phase's
      temporary directory.
+ 14. the evaluation stage of ``scripts/run_celeba_quality_loop.sh:74-99`` on
+     the CelebA snapshot, at full width, cut in depth only (each cut
+     printed): sigmoid and swish in 16 bits against the CPU's bits; one
+     projector step at minibatch 50 (forward and backward through both
+     kernels) and PPL's 32-image synthesis, each kernel path against its
+     plain path from the same latents and draws; every kernel configuration
+     of these and of the stacked-MNIST run's 32 px G, fresh, exact in the
+     three dtypes; then, each with its launch counts set to 0 just before
+     and read just after (derived counts held): ``run_metrics --metrics
+     pr50k3,ppl_wend --lpips-weights`` at 2048 samples on phase 12's
+     seeded set extended to 2048 images (pr50k3's k-NN precision and recall
+     on the card against the CPU's, on the run's features and on two
+     seeded sets that give neither 0 nor 1), ``run_projector
+     project-real-images`` for 50 images of 40 steps at minibatch 50 (the
+     run dir's files, ``ivom.txt``), ``ls`` at 4096 samples with the CelebA
+     attribute classifier (its SVM in float32 against float64 on the card),
+     ``mode_counts_24k`` and ``KL24k`` at 2048 images of the 32 px G with
+     the stacked-MNIST classifier; seconds per 1000 samples of each; the
+     projector's ms per step with the kernels and the plain versions in
+     turns, IvOM seconds per image at 400 steps; the kernels at the
+     projector's shapes (ms, plain, bound, cuDNN, launches per step).
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
-300 s, phase 12 under 240 s and phase 13 under 300 s; a run over any budget
-fails. Any failure raises and the script
+300 s, phase 12 under 240 s, phase 13 under 300 s and phase 14 under 150 s;
+a run over any budget fails. Any failure raises and the script
 exits non-zero. The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's record takes its
+``launches`` and its timings (shape, ms, plain, bound, library) from the
+IvOM projector of phase 14, the main path of the evaluation slice; the
+timing of phase 6 or 11 stands under ``earlier_timing``, and every path's
+launches under ``launches_by_path``.
 """
 
 import contextlib
@@ -107,6 +132,7 @@ import io
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -228,6 +254,58 @@ BF16_PATHS_REL_L2 = 5e-3
 INCEPTION_REL_L2 = 1e-4
 FID_SELF_REL = 1e-6
 CLI_METRIC = "fid10k"  # run_metrics at the registry's full 10000 fakes
+
+# Phase 14, the evaluation stage of scripts/run_celeba_quality_loop.sh:74-99
+# on the CelebA snapshot: run_metrics pr50k3,ppl_wend with the CelebA LPIPS
+# weights, run_projector project-real-images (IvOM), ls; then mode_counts_24k
+# and KL24k on a fresh init of the stacked-MNIST run's 32 px G. Cut in depth
+# only: EVAL_IMAGES samples for pr50k3 and ppl_wend (50000), 50 images of 40
+# steps for the projector (300 of 400), LS_CUT for ls (200000 and 100000),
+# MNIST_IMAGES for mode_counts and KL (24576). The reals are phase 12's
+# seeded set, extended to EVAL_IMAGES and written by another process while
+# phases 12 and 13 run (the port's pure-Python CRC takes ~20 s for them).
+EVAL_BUDGET_S = 150
+EVAL_IMAGES = 2048
+PROJ_IMAGES, PROJ_MB, PROJ_STEPS, PROJ_SNAPSHOTS = 50, 50, 40, 5
+LS_CUT = dict(num_samples=4096, num_keep=2048)
+MNIST_IMAGES = 2048
+ATTR_WEIGHTS = os.path.join(HERE, "metrics_weights", "celeba_attr_classifier.npz")
+MNIST_WEIGHTS = os.path.join(HERE, "metrics_weights", "stacked_mnist_classifier.npz")
+# The Gs config of artifacts/best_weights_fp16.pkl (the stacked-MNIST run),
+# which does not fit in the card's copy beside the CelebA pickle; the CPU
+# tests hold this dict against the pickle.
+MNIST_G_CONFIG = dict(resolution=32, num_channels=3, latent_size=512, dlatent_size=512,
+                      label_size=0, fmap_base=8192, fmap_max=512, architecture="skip",
+                      mapping_layers=8, mapping_fmaps=512, truncation_psi=0.6)
+MNIST_D_CONFIG = dict(resolution=32, num_channels=3, label_size=0, fmap_base=8192,
+                      fmap_max=512, architecture="resnet", mbstd_group_size=8)
+# Kernel path against plain path on the card, from the same latents and
+# draws, both with PyTorch's deterministic algorithms: with cuDNN's default
+# ones the plain path alone moves the latents' gradient by 8.05e-5 relative
+# L2 from run to run, which Adam's near-sign first step turns into 1.6e-4 of
+# a latent, and PPL's pair lengths by up to 3.2e-3 (1/epsilon^2 = 1e8
+# amplifies any difference of a pair's two images). One projector step's
+# LPIPS distances |k - p| <= 1e-5 |p|, its latents' gradient within
+# relative L2 1e-5, the latents after Adam within 1e-6; PPL's per-pair
+# lengths |k - p| <= 1e-3 |p|. The kernels are exact to their plain
+# versions, so the paths agree to float32 rounding (0 in the readings).
+PROJ_DIST_RTOL = 1e-5
+PROJ_GRAD_REL_L2 = 1e-5
+PROJ_LATENT_ATOL = 1e-6
+PPL_PAIR_RTOL = 1e-3
+# The SVM on the card (float32) against the same solver in float64 on the
+# card, on the LS fits' own data: predictions agree on at least this share.
+SVM_AGREE = 0.999
+# pr50k3's k-NN precision and recall on the card against the same function
+# on the CPU, within one point in n (|card - cpu| <= 1/n): on the features of
+# the run_metrics run, and on a seeded pair of sets whose answer is neither 0
+# nor 1 and whose n crosses the estimator's 2048-row and 4096-column blocks
+# (PR_SYNTH_N points of rank PR_SYNTH_RANK in 1472 dimensions, the eval set
+# shifted by PR_SYNTH_SHIFT: about 0.84 and 0.82).
+PR_SYNTH_N, PR_SYNTH_RANK, PR_SYNTH_SHIFT = 4608, 8, 0.5
+# the keys of a kernel record that one timing at one shape gives
+TIMING_KEYS = ("shape", "config", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+ACT_BITS = os.path.join(HERE, "inclusivegan_torch", "testdata", "activation_bits.npz")
 
 
 def log(msg: str) -> None:
@@ -464,43 +542,9 @@ def training_slice(np, torch, ck, gen):
     log("one iteration: " + ", ".join(
         f"{n} {len(rec.calls[n])} calls at {len(rec.unique(n))} shapes" for n in names))
 
-    errs = dict.fromkeys(KERNELS, 0.0)
-    dtypes = [getattr(torch, d) for d in DTYPES]
+    errs, _ = check_recorded(np, torch, ck, rec, gen, "training iteration",
+                             dtypes=[getattr(torch, d) for d in DTYPES])
     with torch.no_grad():
-        for shape, (axis, alpha, gain) in rec.unique("bias_lrelu"):
-            for dtype in dtypes:
-                x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                b = torch.randn(shape[axis], device="cuda", generator=gen).to(dtype)
-                e = check_kernel("bias_lrelu", shape,
-                                 lambda: ck.bias_lrelu(x, b, axis, alpha, gain),
-                                 lambda: fused_bias_act(x, b, axis=axis, act="lrelu",
-                                                        alpha=alpha, gain=gain,
-                                                        impl="plain"),
-                                 dtype, TOL[str(dtype)[6:]])
-                if dtype == torch.float32:
-                    errs["bias_lrelu"] = max(errs["bias_lrelu"], e)
-        for shape, (alpha, gain) in rec.unique("bias_lrelu_grad"):
-            for dtype in dtypes:
-                y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                e = check_kernel("bias_lrelu_grad", shape,
-                                 lambda: ck.bias_lrelu_grad(y, dy, alpha, gain),
-                                 lambda: bias_lrelu_grad_plain(y, dy, alpha, gain),
-                                 dtype, TOL[str(dtype)[6:]])
-                if dtype == torch.float32:
-                    errs["bias_lrelu_grad"] = max(errs["bias_lrelu_grad"], e)
-        for shape, (f, up, down, pad, gain, counter) in rec.unique("upfirdn2d"):
-            f = np.asarray(f, np.float32)
-            for dtype in dtypes:
-                x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                e = check_kernel(
-                    f"{counter} up {up} down {down} pad {pad}", shape,
-                    lambda: ck.upfirdn2d(x, f, up, down, pad, gain),
-                    lambda: upfirdn2d(x, f, up=up, down=down, pad=pad, gain=gain,
-                                      impl="plain"),
-                    dtype, TOL[str(dtype)[6:]])
-                if dtype == torch.float32:
-                    errs[counter] = max(errs[counter], e)
         check_fir_branches(np, torch, ck, gen)
 
     phase("8 autograd through the kernels against the plain versions")
@@ -871,16 +915,17 @@ def training_slice(np, torch, ck, gen):
     return records, main_launches, errs
 
 
-def write_loop_dataset(np, data_dir, res):
-    """DATA_SIZE seeded uint8 images at ``res`` px with LOOP_LABELS binary
-    attributes, written by the port's exporter as LOOP_DATASET."""
+def write_loop_dataset(np, data_dir, res, num=DATA_SIZE):
+    """``num`` seeded uint8 images at ``res`` px with LOOP_LABELS binary
+    attributes, written by the port's exporter as LOOP_DATASET (the first
+    DATA_SIZE are the same for every ``num``)."""
     from inclusivegan_torch.data.dataset_tool import TFRecordExporter
     rng = np.random.default_rng(12)
-    with TFRecordExporter(os.path.join(data_dir, LOOP_DATASET), DATA_SIZE,
+    with TFRecordExporter(os.path.join(data_dir, LOOP_DATASET), num,
                           print_progress=False) as tfr:
-        for _ in range(DATA_SIZE):
+        for _ in range(num):
             tfr.add_image(rng.integers(0, 256, (3, res, res), dtype=np.uint8))
-        tfr.add_labels(rng.integers(0, 2, (DATA_SIZE, LOOP_LABELS)).astype(np.float32))
+        tfr.add_labels(rng.integers(0, 2, (num, LOOP_LABELS)).astype(np.float32))
     return sorted(os.listdir(os.path.join(data_dir, LOOP_DATASET)))
 
 
@@ -1206,15 +1251,9 @@ def check_resumed_run(torch, state, run_dir, launches, rebuild_from):
     Gs = load_snapshot(final, device="cuda")
     z = torch.randn(4, Gs.mapping.latent_size, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True)
-    try:
-        with torch.no_grad():
-            a = state.Gs(z, randomize_noise=False)
-            b = Gs(z, randomize_noise=False)
-    finally:
-        torch.backends.cudnn.deterministic = False
-        torch.use_deterministic_algorithms(False)
+    with deterministic(torch), torch.no_grad():
+        a = state.Gs(z, randomize_noise=False)
+        b = Gs(z, randomize_noise=False)
     diff = (a - b).abs().max().item()
     log(f"network-final.pkl's Gs against the in-memory Gs, 4 images: max |diff| {diff}")
     if not torch.equal(a, b):
@@ -1268,17 +1307,24 @@ def report_run(label, run_dir, wall, steps, launches, n_rebuilds, n_metric_runs=
         f"from the first step to the last, host clock; launches {launches}")
 
 
-def check_recorded(np, torch, ck, rec, gen, label):
+def check_recorded(np, torch, ck, rec, gen, label, dtypes=None):
     """Each kernel at every distinct (shape, arguments, dtype) that ``rec``
-    saw, against its plain version on fresh random inputs of that dtype,
-    exactly. Returns the largest error of each counter and the number of
-    configurations."""
+    saw, against its plain version on fresh random inputs of that dtype, or
+    of each of ``dtypes`` where given, exactly. Returns the largest error of
+    each counter and the number of configurations."""
     from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
     from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
     errs = dict.fromkeys(KERNELS, 0.0)
     n = 0
+
+    def each(name):
+        if name not in rec.calls:
+            return []
+        if dtypes is None:
+            return rec.unique_typed(name)
+        return [(shape, key, d) for shape, key in rec.unique(name) for d in dtypes]
     with torch.no_grad():
-        for shape, (axis, alpha, gain), dtype in rec.unique_typed("bias_lrelu"):
+        for shape, (axis, alpha, gain), dtype in each("bias_lrelu"):
             x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             b = torch.randn(shape[axis], device="cuda", generator=gen).to(dtype)
             e = check_kernel(f"{label} bias_lrelu", shape,
@@ -1288,7 +1334,7 @@ def check_recorded(np, torch, ck, rec, gen, label):
                              dtype, TOL[str(dtype)[6:]])
             errs["bias_lrelu"] = max(errs["bias_lrelu"], e)
             n += 1
-        for shape, (alpha, gain), dtype in rec.unique_typed("bias_lrelu_grad"):
+        for shape, (alpha, gain), dtype in each("bias_lrelu_grad"):
             y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             e = check_kernel(f"{label} bias_lrelu_grad", shape,
@@ -1297,7 +1343,7 @@ def check_recorded(np, torch, ck, rec, gen, label):
                              dtype, TOL[str(dtype)[6:]])
             errs["bias_lrelu_grad"] = max(errs["bias_lrelu_grad"], e)
             n += 1
-        for shape, (f, up, down, pad, gain, counter), dtype in rec.unique_typed("upfirdn2d"):
+        for shape, (f, up, down, pad, gain, counter), dtype in each("upfirdn2d"):
             f = np.asarray(f, np.float32)
             x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             e = check_kernel(f"{label} {counter} up {up} down {down} pad {pad}", shape,
@@ -1718,7 +1764,534 @@ def production_bf16_phase(np, torch, ck):
     return launches, errs, bf16_records
 
 
+class EvalData:
+    """Phase 14's reals: EVAL_IMAGES images written by a background process
+    started before phase 12; ``close`` (registered at exit) stops it and
+    deletes its directory."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+        self.data_dir = os.path.join(self.tmp, "data")
+        code = (f"import sys, time; sys.path.insert(0, {HERE!r}); import numpy as np; "
+                f"import chip_smoke as s; t = time.time(); "
+                f"s.write_loop_dataset(np, {self.data_dir!r}, 128, {EVAL_IMAGES}); "
+                f"print(f'{{time.time() - t:.1f}}')")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+
+    def wait(self) -> str:
+        out, _ = self.proc.communicate(timeout=EVAL_BUDGET_S)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"the reals' writer exited {self.proc.returncode}: {out[-2000:]}")
+        log(f"the {EVAL_IMAGES} reals were written by another process in "
+            f"{out.strip().splitlines()[-1]} s")
+        return self.data_dir
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def forward_launches(G, forwards, mapping_only=0):
+    """bias_lrelu and upfirdn2d launches of ``forwards`` Gs forwards (and
+    ``mapping_only`` calls of the mapping alone)."""
+    syn = G.synthesis
+    n_bias = G.mapping.mapping_layers + syn.num_layers - 1
+    return {"bias_lrelu": forwards * n_bias + mapping_only * G.mapping.mapping_layers,
+            "upfirdn2d": forwards * 2 * (syn.resolution_log2 - 2)}
+
+
+def check_activation_bits(np, torch):
+    """sigmoid and swish in bfloat16 and float16 on the card against the bits
+    the JAX package computes on the CPU (``activation_bits.npz``): the share
+    of values that differ, by activation and dtype."""
+    from inclusivegan_torch.ops import fused_bias_act
+    bits = np.load(ACT_BITS)
+    shares = {}
+    x, b = torch.from_numpy(bits["x"]).cuda(), torch.from_numpy(bits["b"]).cuda()
+    for act in ("sigmoid", "swish"):
+        for dtype in ("bfloat16", "float16"):
+            dt = getattr(torch, dtype)
+            y = fused_bias_act(x.to(dt), b.to(dt), act=act)
+            got = y.view(torch.int16).cpu().numpy().view(np.uint16)
+            share = float(np.mean(got != bits[f"{act}/{dtype}"]))
+            log(f"{act} {dtype} on the card against the CPU's bits: {share:.4%} of "
+                f"{got.size} values differ")
+            shares[f"{act} {dtype}"] = share
+    return shares
+
+
+def read_run_log(root):
+    """The one run dir under ``root`` and the lines of its log."""
+    (run_dir,) = [os.path.join(root, d) for d in os.listdir(root)]
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        return run_dir, f.read().splitlines()
+
+
+def metric_line(run_dir, name):
+    """The value line of ``metric-<name>.txt``."""
+    (line,) = open(os.path.join(run_dir, f"metric-{name}.txt")).read().splitlines()
+    return line
+
+
+def run_in_process(torch, ck, module, argv, cuts=None):
+    """``python -m <module> argv`` in this process (its output to its run
+    dir's log), with the launch counts set to 0 just before and read just
+    after; ``cuts`` patches the metric registry. Returns (result, launches,
+    seconds, seconds of each metric's ``MetricBase.run``): host clock, the
+    card synchronized at both ends."""
+    import importlib
+    from inclusivegan_torch.metrics.metric_base import MetricBase
+    from inclusivegan_torch.metrics.metric_defaults import metric_defaults
+    main = importlib.import_module(module).main
+    log("$ python -m " + module + " " + " ".join(
+        os.path.relpath(a, HERE) if a.startswith(HERE) else a for a in argv))
+    metric_s = {}
+    run = MetricBase.run
+
+    def timed_run(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        metric_s[self.name] = time.perf_counter() - t0
+        return out
+    with mock.patch.dict(metric_defaults, cuts or {}), \
+            mock.patch.object(MetricBase, "run", timed_run):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(ck.launches)
+    return result, launches, secs, metric_s
+
+
+def check_knn_precision_recall(np, torch, ref, fake, nhood, what, failures):
+    """pr50k3's k-NN precision and recall on the card against the same call
+    on the CPU; returns the card's."""
+    from inclusivegan_torch.metrics.precision_recall import knn_precision_recall_features
+    card = knn_precision_recall_features(ref, fake, nhood, device="cuda")
+    cpu = knn_precision_recall_features(ref, fake, nhood, device="cpu")
+    n = min(len(ref), len(fake))
+    err = max(abs(card[k] - cpu[k]) for k in ("precision", "recall"))
+    log(f"k-NN precision and recall of {what}, {len(ref)} + {len(fake)} features of "
+        f"{ref.shape[1]}: card {card}, CPU {cpu}, largest difference {err:.3e} "
+        f"(limit 1/n = {1 / n:.3e})")
+    if not err <= 1 / n:
+        failures.append(f"k-NN precision and recall of {what} on the card differ from the CPU's")
+    return card
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms, cuDNN's included, for a comparison
+    of two paths: cuDNN's defaults may sum with atomics."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+
+def check_launches(what, launches, expected, failures):
+    log(f"{what}: launches {launches} (derived {expected})")
+    if launches != expected:
+        failures.append(f"{what}: launch counts {launches} != {expected}")
+
+
+def evaluation_phase(np, torch, ck, eval_data):
+    """Phase 14. Returns the launch counts of each evaluation path, the
+    largest float32 error of each kernel at the new configurations, and the
+    kernel rows at the projector's shapes."""
+    from inclusivegan_torch.data.dataset import load_dataset
+    from inclusivegan_torch.metrics import linear_separability, precision_recall
+    from inclusivegan_torch.metrics.linear_svm import fit_linear_svc, predict
+    from inclusivegan_torch.metrics.metric_defaults import metric_defaults
+    from inclusivegan_torch.metrics.perceptual_path_length import pair_distances
+    from inclusivegan_torch.models.lpips import load_lpips_params
+    from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
+    from inclusivegan_torch.ops import fused_bias_act, upfirdn2d
+    from inclusivegan_torch.ops.bench import (
+        F32_OPS_PER_S, HBM_BYTES_PER_S, Recorder, device_ms, print_rows, time_configs)
+    from inclusivegan_torch.ops.fused_bias_act import bias_lrelu_grad_plain
+    from inclusivegan_torch.projector import Projector
+    from inclusivegan_torch.snapshot import SNAPSHOT_FORMAT, load_snapshot, state_dict_to_params
+    from inclusivegan_torch.training.optimizer import adam_apply, init_adam
+    from inclusivegan_torch.utils.easydict import EasyDict
+    from inclusivegan_torch.utils.misc import adjust_dynamic_range
+
+    phase("14 the evaluation stage: pr50k3 and ppl_wend, the IvOM projector, ls, "
+          "mode_counts and KL")
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    torch.cuda.empty_cache()
+    log("cut in depth only: " + "; ".join([
+        f"pr50k3 and ppl_wend at {EVAL_IMAGES} samples (50000)",
+        f"run_projector {PROJ_IMAGES} images of {PROJ_STEPS} steps (300 of 400), "
+        f"minibatch {PROJ_MB} (the default)",
+        f"ls at {LS_CUT['num_samples']} samples, {LS_CUT['num_keep']} kept (200000, 100000)",
+        f"mode_counts_24k and KL24k at {MNIST_IMAGES} images (24576) of a fresh 32 px "
+        f"G"]))
+    failures = []  # held at the end of the phase, after every reading
+    act_shares = check_activation_bits(np, torch)
+    G = load_snapshot(NETWORK, device="cuda")
+    lpips = load_lpips_params(LPIPS_WEIGHTS, device="cuda")
+    data_dir = eval_data.wait()
+    reals = load_dataset(data_dir=data_dir, tfrecord_dir=LOOP_DATASET, shuffle=False)
+    targets = adjust_dynamic_range(reals.get_minibatch_np(PROJ_MB)[0].astype(np.float32),
+                                   reals.dynamic_range, [-1, 1])
+    del reals
+    errs = dict.fromkeys(KERNELS, 0.0)
+
+    def check_all_dtypes(rec, label):
+        dtypes = [getattr(torch, d) for d in DTYPES]
+        e, n = check_recorded(np, torch, ck, rec, gen, label, dtypes=dtypes)
+        log(f"{label}: {n} configurations and dtypes, kernel against plain version exact")
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+
+    # 14.1 one projector step at minibatch 50, kernel path against plain path
+    projs = {}
+    for impl in ("cuda", "plain"):
+        projs[impl] = Projector(lpips_weights=LPIPS_WEIGHTS, impl=impl)
+        with contextlib.redirect_stdout(io.StringIO()):
+            projs[impl].set_network(G, minibatch_size=PROJ_MB, num_steps=PROJ_STEPS)
+        projs[impl].start(targets)
+    lat = torch.randn((PROJ_MB, G.mapping.latent_size), device="cuda", generator=gen)
+    noise = torch.randn((PROJ_MB, G.mapping.latent_size), device="cuda", generator=gen)
+    strength, lr = projs["cuda"].ramps(PROJ_STEPS // 4)
+    names = ("bias_lrelu", "bias_lrelu_grad", "upfirdn2d")
+    # cuDNN's default backward algorithms may sum with atomics, which moves
+    # the latents' gradient from run to run (shown by the plain path twice);
+    # the comparison runs PyTorch's deterministic algorithms on both paths
+    twice = [projs["plain"].loss_and_grad(lat, noise, strength)[2] for _ in range(2)]
+    log(f"projector step, plain path twice with the default algorithms: latents' "
+        f"gradient relative L2 difference {rel_l2(torch, twice[0], twice[1]):.3e}")
+    del twice
+    out = {}
+    with deterministic(torch):
+        for impl, proj in projs.items():
+            with Recorder(ck, names) as rec:
+                dist, loss, grad = proj.loss_and_grad(lat, noise, strength)
+            torch.cuda.synchronize()
+            new, _, _ = adam_apply({"z": lat}, {"z": grad}, init_adam({"z": lat}),
+                                   learning_rate=lr, beta1=0.9, beta2=0.999, epsilon=1e-8)
+            out[impl] = (dist, grad, new["z"])
+            if impl == "cuda":
+                proj_rec = rec
+    (dk, gk, zk), (dp, gp, zp) = out["cuda"], out["plain"]
+    d_err = ((dk - dp).abs() / dp.abs()).max().item()
+    g_err = rel_l2(torch, gk, gp)
+    z_err = (zk - zp).abs().max().item()
+    log(f"projector step {PROJ_STEPS // 4} at minibatch {PROJ_MB} (noise strength "
+        f"{strength:.4g}, lr {lr:.4g}), deterministic algorithms, kernel path against "
+        f"plain path: LPIPS distances "
+        f"max relative err {d_err:.3e} (limit {PROJ_DIST_RTOL:g}), latents' gradient "
+        f"relative L2 {g_err:.3e} (limit {PROJ_GRAD_REL_L2:g}), latents after Adam max "
+        f"abs err {z_err:.3e} (limit {PROJ_LATENT_ATOL:g}); distances {dk.mean().item():.5f} "
+        f"mean, gradient norm {gk.norm().item():.4e}")
+    if not (d_err <= PROJ_DIST_RTOL and g_err <= PROJ_GRAD_REL_L2
+            and z_err <= PROJ_LATENT_ATOL and torch.isfinite(gk).all()):
+        failures.append("the projector's kernel path disagrees with its plain path")
+    per_step = {n: len(proj_rec.calls[n]) for n in names}
+    per_step["upfirdn2d_transposed"] = sum(
+        k[5] == "upfirdn2d_transposed" for _, k in proj_rec.calls["upfirdn2d"])
+    per_step["upfirdn2d"] -= per_step["upfirdn2d_transposed"]
+    log(f"one projector step launches {per_step}")
+    check_all_dtypes(proj_rec, "projector step")
+
+    # 14.2 PPL's 32-image synthesis (16 pairs), kernel path against plain path
+    ppl_args = metric_defaults["ppl_wend"]
+    z01 = torch.randn((2 * ppl_args.minibatch_per_gpu, G.mapping.latent_size), device="cuda",
+                      generator=gen)
+    t0 = torch.zeros(ppl_args.minibatch_per_gpu, device="cuda")
+    ppl_noise = G.synthesis.init_noise(gen)
+    def lengths_of(impl):
+        return pair_distances(G, lpips, z01, t0, ppl_noise, "w", ppl_args.epsilon,
+                              ppl_args.crop, impl=impl)
+
+    def rel_max(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+    lengths = {}
+    with torch.no_grad():
+        twice = [lengths_of("plain") for _ in range(2)]
+        log(f"ppl_wend's 16 pair lengths, plain path twice with the default algorithms: "
+            f"max relative difference {rel_max(*twice):.3e}")
+        with deterministic(torch):
+            for impl in ("cuda", "plain"):
+                with Recorder(ck) as rec:
+                    lengths[impl] = lengths_of(impl)
+                if impl == "cuda":
+                    ppl_rec = rec
+    pe = rel_max(lengths["cuda"], lengths["plain"])
+    log(f"ppl_wend's 16 pair lengths, deterministic algorithms, kernel path against "
+        f"plain path: max relative err "
+        f"{pe:.3e} (limit {PPL_PAIR_RTOL:g}); lengths {lengths['cuda'].min().item():.4g} to "
+        f"{lengths['cuda'].max().item():.4g}")
+    if not pe <= PPL_PAIR_RTOL:
+        failures.append("PPL's pair lengths differ between the kernel and plain paths")
+    check_all_dtypes(ppl_rec, "ppl_wend synthesis")
+
+    # 14.3 the stacked-MNIST run's 32 px G, fresh, as a snapshot
+    g_init = torch.Generator(device="cuda").manual_seed(32)
+    G32 = GMain.create(**MNIST_G_CONFIG).to("cuda").init(g_init)
+    D32 = Discriminator(**MNIST_D_CONFIG).to("cuda").init(g_init)
+    with torch.no_grad(), Recorder(ck) as rec:
+        G32(torch.randn((32, 512), device="cuda", generator=gen),
+            truncation_psi=1.0, randomize_noise=False)
+    check_all_dtypes(rec, "32 px G")
+    mnist_pkl = os.path.join(eval_data.tmp, "stacked_mnist_fresh.pkl")
+
+    def net(model):
+        return {"config": model.config, "params": state_dict_to_params(model.state_dict())}
+    with open(mnist_pkl, "wb") as f:
+        pickle.dump({"format": SNAPSHOT_FORMAT + ".v1", "G": net(G32), "D": net(D32),
+                     "Gs": net(G32)}, f)
+    del D32
+    torch.cuda.empty_cache()
+
+    # 14.4 the main paths, each with its launch counts set to 0 before it
+    launches = {}
+    common = ["--data-dir", data_dir, "--dataset", LOOP_DATASET, "--mirror-augment", "true"]
+    cuts = {"pr50k3": EasyDict(metric_defaults["pr50k3"], num_images=EVAL_IMAGES),
+            "ppl_wend": EasyDict(metric_defaults["ppl_wend"], num_samples=EVAL_IMAGES)}
+    root = os.path.join(eval_data.tmp, "metrics_pr_ppl")
+    knn_inputs = []
+    knn = precision_recall.knn_precision_recall_features
+
+    def recording_knn(ref, fake, nhood_size=3, **kw):
+        knn_inputs.append((ref, fake, nhood_size))
+        return knn(ref, fake, nhood_size, **kw)
+    with mock.patch.object(precision_recall, "knn_precision_recall_features", recording_knn):
+        res, launches["pr50k3,ppl_wend"], secs, metric_s = run_in_process(
+            torch, ck, "inclusivegan_torch.run_metrics",
+            ["--network", NETWORK, "--metrics", "pr50k3,ppl_wend", "--lpips-weights",
+             LPIPS_WEIGHTS, "--result-dir", root] + common, cuts)
+    expected = forward_launches(G, EVAL_IMAGES // 32 + EVAL_IMAGES // 16)
+    check_launches("run_metrics pr50k3,ppl_wend", launches["pr50k3,ppl_wend"],
+                   dict(expected, bias_lrelu_grad=0, upfirdn2d_transposed=0), failures)
+    run_dir, lines = read_run_log(root)
+    for ln in lines:
+        if ln.startswith(("pr50k3:", "ppl_wend:", "celeba_best")):
+            log(f"run_metrics: {ln}")
+    per_1000 = {name: 1000 * metric_s[name] / EVAL_IMAGES for name in ("pr50k3", "ppl_wend")}
+    log(f"run_metrics pr50k3,ppl_wend: {secs:.3f} s; {res}")
+    if not all(math.isfinite(v) for v in res.values()) or res.get(
+            "pr50k3_random_features") != 1.0 or not res["ppl_wend"] > 0:
+        raise RuntimeError(f"run_metrics pr50k3,ppl_wend gave {res}")
+    (ref_f, fake_f, nhood), = knn_inputs
+    card = check_knn_precision_recall(np, torch, ref_f, fake_f, nhood, "the pr50k3 run",
+                                      failures)
+    if not all(abs(card[k] - res[f"pr50k3_{k}"]) <= 1 / len(ref_f)
+               for k in ("precision", "recall")):
+        failures.append("the pr50k3 run's result is not that of its features")
+    rng = np.random.RandomState(14)
+    proj = rng.randn(PR_SYNTH_RANK, ref_f.shape[1]).astype(np.float32) / PR_SYNTH_RANK ** 0.5
+    ref_s = rng.randn(PR_SYNTH_N, PR_SYNTH_RANK).astype(np.float32) @ proj
+    fake_s = (rng.randn(PR_SYNTH_N, PR_SYNTH_RANK) + PR_SYNTH_SHIFT).astype(np.float32) @ proj
+    card = check_knn_precision_recall(np, torch, ref_s, fake_s, nhood, "two seeded sets",
+                                      failures)
+    if not all(0.05 < v < 0.95 for v in card.values()):
+        failures.append(f"the seeded sets' k-NN precision and recall {card} are near 0 or 1")
+    del knn_inputs, ref_s, fake_s
+
+    root = os.path.join(eval_data.tmp, "projection")
+    (mean, std), launches["run_projector"], proj_s, _ = run_in_process(
+        torch, ck, "inclusivegan_torch.run_projector",
+        ["project-real-images", "--network", NETWORK, "--data-dir", data_dir,
+         "--dataset", LOOP_DATASET, "--num-images", str(PROJ_IMAGES), "--minibatch-size",
+         str(PROJ_MB), "--num-steps", str(PROJ_STEPS), "--num-snapshots",
+         str(PROJ_SNAPSHOTS), "--lpips-weights", LPIPS_WEIGHTS, "--result-dir", root])
+    n_batches = -(-PROJ_IMAGES // PROJ_MB)
+    forwards = n_batches * (PROJ_STEPS + PROJ_SNAPSHOTS + 2)  # snapshots, get_dist, final
+    expected = forward_launches(G, forwards)
+    expected.update(bias_lrelu_grad=n_batches * PROJ_STEPS * per_step["bias_lrelu_grad"],
+                    upfirdn2d_transposed=n_batches * PROJ_STEPS
+                    * per_step["upfirdn2d_transposed"])
+    check_launches("run_projector", launches["run_projector"], expected, failures)
+    run_dir, lines = read_run_log(root)
+    ivom = open(os.path.join(run_dir, "ivom.txt")).read().split()
+    files = os.listdir(run_dir)
+    want = {f"image{i:04d}-{k}.png" for i in range(PROJ_IMAGES) for k in ("target", "final")}
+    want |= {f"image{i:04d}-step{s:04d}.png" for i in range(PROJ_IMAGES)
+             for s in range(0, PROJ_STEPS, PROJ_STEPS // PROJ_SNAPSHOTS)}
+    for ln in lines:
+        if ln.startswith(("IvOM", "projected")):
+            log(f"run_projector: {ln}")
+    log(f"run_projector: {proj_s:.3f} s in all; ivom.txt {ivom}; {len(files)} files")
+    if not (want <= set(files) and len(ivom) == 3 and int(ivom[2]) == PROJ_IMAGES
+            and math.isfinite(mean) and mean > 0):
+        raise RuntimeError(f"run_projector: ivom {ivom}, missing {sorted(want - set(files))[:4]}")
+
+    fits = []
+    fit = linear_separability.fit_linear_svc
+
+    def recording_fit(x, y):
+        w, n = fit(x, y)
+        if len(fits) < 6:
+            fits.append((x, y, w))
+        return w, n
+    root = os.path.join(eval_data.tmp, "metrics_ls")
+    with mock.patch.object(linear_separability, "fit_linear_svc", recording_fit):
+        res_ls, launches["ls"], ls_s, _ = run_in_process(
+            torch, ck, "inclusivegan_torch.run_metrics",
+            ["--network", NETWORK, "--metrics", "ls", "--result-dir", root] + common,
+            {"ls": EasyDict(metric_defaults["ls"], classifier_weights=ATTR_WEIGHTS, **LS_CUT)})
+    takes = -(-LS_CUT["num_samples"] // (metric_defaults["ls"].minibatch_per_gpu * 32))
+    check_launches("run_metrics ls", launches["ls"],
+                   dict(forward_launches(G, LS_CUT["num_samples"] // 32, mapping_only=takes),
+                        bias_lrelu_grad=0, upfirdn2d_transposed=0), failures)
+    run_dir, lines = read_run_log(root)
+    ls_line = [ln for ln in lines if ln.startswith("ls: ")]
+    for ln in ls_line + [ln for ln in lines if ln.startswith("celeba_best")]:
+        log(f"run_metrics: {ln}")
+    log(f"run_metrics ls: {ls_s:.3f} s; {res_ls}")
+    if set(res_ls) != {"ls_z", "ls_w"} or not all(v >= 1 and math.isfinite(v)
+                                                  for v in res_ls.values()):
+        raise RuntimeError(f"run_metrics ls gave {res_ls}")
+    gen_s, fit_s = (float(ls_line[0].split(" in ")[i].split(" s")[0]) for i in (1, 2))
+    per_1000["ls generation and scorer"] = 1000 * gen_s / LS_CUT["num_samples"]
+    per_1000["ls SVM fits"] = 1000 * fit_s / LS_CUT["num_samples"]
+    worst = 1.0
+    for x, y, w in fits:
+        w64, _ = fit_linear_svc(x.double(), y)
+        agree = (predict(w, x) == predict(w64, x.double())).float().mean().item()
+        worst = min(worst, agree)
+    log(f"LS's SVM, float32 against float64 on the card, {len(fits)} fits of "
+        f"{tuple(fits[0][0].shape)}: predictions agree on at least {worst:.4%} "
+        f"(limit {SVM_AGREE:.1%})")
+    if not (fits and worst >= SVM_AGREE):
+        failures.append("the SVM in float32 disagrees with float64")
+    del fits
+
+    root = os.path.join(eval_data.tmp, "metrics_mnist")
+    mcuts = {n: EasyDict(metric_defaults[n], num_images=MNIST_IMAGES)
+             for n in ("mode_counts_24k", "KL24k")}
+    res_m, launches["mode_counts_24k,KL24k"], m_s, metric_s = run_in_process(
+        torch, ck, "inclusivegan_torch.run_metrics",
+        ["--network", mnist_pkl, "--metrics", "mode_counts_24k,KL24k",
+         "--classifier-weights", MNIST_WEIGHTS, "--result-dir", root] + common, mcuts)
+    check_launches("run_metrics mode_counts_24k,KL24k", launches["mode_counts_24k,KL24k"],
+                   dict(forward_launches(G32, 2 * MNIST_IMAGES // 32), bias_lrelu_grad=0,
+                        upfirdn2d_transposed=0), failures)
+    run_dir, _ = read_run_log(root)
+    for name in ("mode_counts_24k", "KL24k"):
+        per_1000[name] = 1000 * metric_s[name] / MNIST_IMAGES
+        log(f"metric-{name}.txt: {metric_line(run_dir, name)}")
+    log(f"run_metrics mode_counts_24k,KL24k: {m_s:.3f} s; {res_m}")
+    if not (1 <= res_m["mode_counts_24k"] <= 1000 and math.isfinite(res_m["KL24k"])
+            and math.isfinite(res_m["mode_counts_24k_KL"])
+            and "mode_counts_24k_untrained_classifier" not in res_m):
+        raise RuntimeError(f"run_metrics mode_counts_24k,KL24k gave {res_m}")
+    del G32
+    log("seconds per 1000 samples (each metric's MetricBase.run on the host clock, the "
+        "snapshot's load included; ls from its own 0.01 s print): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_1000.items()))
+
+    # 14.5 times: the projector's step, kernels and plain versions in turns
+    step_s = {"cuda": [], "plain": []}
+    for proj in projs.values():
+        proj.num_steps = 400
+        proj.start(targets)
+        proj.step()  # warm-up
+    for i in range(6):
+        for impl in (("plain", "cuda") if i % 2 == 0 else ("cuda", "plain")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            projs[impl].step()
+            torch.cuda.synchronize()
+            step_s[impl].append(time.perf_counter() - t)
+    med = {impl: statistics.median(v) for impl, v in step_s.items()}
+    for impl, v in step_s.items():
+        log(f"projector step at minibatch {PROJ_MB}, impl={impl}: {1e3 * med[impl]:.2f} ms "
+            f"(median of {', '.join(f'{1e3 * x:.1f}' for x in v)})")
+    ivom_400 = (proj_s + (400 - PROJ_STEPS) * n_batches * med["cuda"]) / PROJ_IMAGES
+    log(f"IvOM at 400 steps, extrapolated: {ivom_400:.3f} s per image (the run's "
+        f"{proj_s:.3f} s for "
+        f"{PROJ_IMAGES} images at {PROJ_STEPS} steps, plus {400 - PROJ_STEPS} steps at "
+        f"{1e3 * med['cuda']:.2f} ms per minibatch of {PROJ_MB})")
+    del projs
+    torch.cuda.empty_cache()
+
+    # the kernels at the projector's largest shapes
+    records = {}
+    with torch.no_grad():
+        shape, (alpha, gain) = max(proj_rec.unique("bias_lrelu_grad"),
+                                   key=lambda k: math.prod(k[0]))
+        y = torch.randn(shape, device="cuda", generator=gen)
+        dy = torch.randn(shape, device="cuda", generator=gen)
+        t_bytes = 3 * y.numel() * y.element_size() / HBM_BYTES_PER_S
+        t_ops = 2 * y.numel() / F32_OPS_PER_S
+        records["bias_lrelu_grad"] = dict(
+            shape=list(shape), ms=device_ms(lambda: ck.bias_lrelu_grad(y, dy, alpha, gain)),
+            plain_ms=device_ms(lambda: bias_lrelu_grad_plain(y, dy, alpha, gain)),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+            launches_per_step=per_step["bias_lrelu_grad"])
+        del y, dy
+        shape, (axis, alpha, gain) = max(proj_rec.unique("bias_lrelu"),
+                                         key=lambda k: math.prod(k[0]))
+        x = torch.randn(shape, device="cuda", generator=gen)
+        b = torch.randn(shape[axis], device="cuda", generator=gen)
+        t_bytes = (2 * x.numel() + b.numel()) * x.element_size() / HBM_BYTES_PER_S
+        t_ops = 3 * x.numel() / F32_OPS_PER_S
+        records["bias_lrelu"] = dict(
+            shape=list(shape), ms=device_ms(lambda: ck.bias_lrelu(x, b, axis, alpha, gain)),
+            plain_ms=device_ms(lambda: fused_bias_act(x, b, axis=axis, act="lrelu",
+                                                      alpha=alpha, gain=gain, impl="plain")),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+            launches_per_step=per_step["bias_lrelu"])
+        del x, b
+    log(f"upfirdn2d at every configuration of one projector step (minibatch {PROJ_MB}, "
+        f"{len(proj_rec.calls['upfirdn2d'])} launches):")
+    rows = time_configs(ck, proj_rec.calls["upfirdn2d"], gen, log=log)
+    print_rows(rows, log=log)
+    for counter in ("upfirdn2d", "upfirdn2d_transposed"):
+        shape, (f, up, down, pad, gain, _c) = max(
+            (c for c in proj_rec.unique("upfirdn2d") if c[1][5] == counter),
+            key=lambda c: math.prod(c[0]))
+        r = next(r for r in rows if tuple(r["shape"]) == shape and r["counter"] == counter
+                 and r["up"] == up and list(r["pad"]) == list(pad))
+        with torch.no_grad():
+            x = torch.randn(shape, device="cuda", generator=gen)
+            f = np.asarray(f, np.float32)
+            plain_ms = device_ms(lambda: upfirdn2d(x, f, up=up, down=down, pad=pad,
+                                                   gain=gain, impl="plain"))
+        records[counter] = dict(shape=r["shape"], ms=r["ms"], plain_ms=plain_ms,
+                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                library_ms=r["library_ms"],
+                                launches_per_step=per_step[counter])
+        del x
+    for name, r in records.items():
+        log(f"{name} at the projector's {tuple(r['shape'])}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"library {r['library_ms']}, {r['launches_per_step']} launches per step")
+    del G
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(act_shares.values()):
+        failures.append(f"sigmoid or swish on the card differs from the CPU's bits: "
+                        f"{act_shares}")
+    if failures:
+        raise RuntimeError("phase 14: " + "; ".join(failures))
+    eval_s = time.time() - t_phase
+    log(f"phase 14 took {eval_s:.1f} s (budget {EVAL_BUDGET_S} s)")
+    if eval_s >= EVAL_BUDGET_S:
+        raise RuntimeError(f"phase 14 took {eval_s:.1f} s, over its {EVAL_BUDGET_S} s budget")
+    return launches, errs, records
+
+
 def main() -> int:
+    import atexit
     import numpy as np
     import torch
 
@@ -1771,8 +2344,8 @@ def main() -> int:
     torch.cuda.synchronize()
     if not torch.isfinite(imgs).all():
         raise RuntimeError("non-finite generator output")
-    n_bias = G.mapping.mapping_layers + syn.num_layers - 1
-    n_fir = 2 * (syn.resolution_log2 - 2)
+    per_forward = forward_launches(G, 1)
+    n_bias, n_fir = per_forward["bias_lrelu"], per_forward["upfirdn2d"]
     got = (len(rec.calls["bias_lrelu"]), len(rec.calls["upfirdn2d"]))
     log(f"one forward: {got[0]} bias_lrelu and {got[1]} upfirdn2d calls "
         f"(expected {n_bias} and {n_fir})")
@@ -1809,8 +2382,8 @@ def main() -> int:
     images = generate_images(G, NUM_IMAGES, MINIBATCH, device="cuda")
     launches = dict(ck.launches)
     n_batches = math.ceil(NUM_IMAGES / MINIBATCH)
-    expected = {"bias_lrelu": n_batches * n_bias, "bias_lrelu_grad": 0,
-                "upfirdn2d": n_batches * n_fir, "upfirdn2d_transposed": 0}
+    expected = dict(forward_launches(G, n_batches), bias_lrelu_grad=0,
+                    upfirdn2d_transposed=0)
     log(f"images {images.shape} {images.dtype}; launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -1928,6 +2501,10 @@ def main() -> int:
         raise RuntimeError(f"phases 7-11 took {train_s:.1f} s, over their "
                            f"{TRAIN_BUDGET_S} s budget")
 
+    # phase 14's reals, written by another process while phases 12 and 13
+    # run (after the timings of phases 6 and 11)
+    eval_data = EvalData()
+    atexit.register(eval_data.close)
     gc.collect()
     loop_launches, loop_errs = training_loop_phase(np, torch, ck)
     for r in records:
@@ -1941,6 +2518,22 @@ def main() -> int:
         r["launches_by_path"]["training_loop_bf16"] = bf16_launches[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"], bf16_errs.get(r["name"], 0.0))
         r["bf16"] = bf16_records[r["name"]]
+
+    gc.collect()
+    eval_launches, eval_errs, eval_records = evaluation_phase(np, torch, ck, eval_data)
+    for r in records:
+        r["launches_by_path"].update({f"evaluation {path}": counts[r["name"]]
+                                      for path, counts in eval_launches.items()})
+        # this slice's main path, the IvOM projector, gives the launches and
+        # the timings at the top level, both at its shapes; the earlier
+        # timing goes under the path that gave its shape
+        earlier = {k: r.pop(k) for k in TIMING_KEYS if k in r}
+        earlier["path"] = ("generate_images" if r["name"] in ("bias_lrelu", "upfirdn2d")
+                           else "train_iteration")
+        r["earlier_timing"] = earlier
+        r.update(eval_records[r["name"]])
+        r["launches"] = eval_launches["run_projector"][r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"], eval_errs[r["name"]])
     log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)

@@ -1,6 +1,8 @@
 """FID, ported from ``inclusivegan_tpu/metrics/frechet_inception_distance.py``.
 
-The reals are embedded once per (dataset args, data dir, count, network
+The embedder is InceptionV3's pool_3 (``feature_net="inception_v3"``, the
+default) or the pooled VGG16 features of ``models/feature_nets.py``
+(``feature_net="vgg"``). The reals are embedded once per (dataset args, data dir, count, network
 checksum, mirror augmentation) and their mean and covariance cached; the
 loop over them stops at the dataset's size. The fakes come from the
 sampler's Gs. The Frechet distance is taken on the host in float64
@@ -28,17 +30,18 @@ class FID(MetricBase):
     def __init__(self, name, num_images=10000, minibatch_per_gpu=8,
                  feature_net="inception_v3", feature_net_weights=None, **kwargs):
         super().__init__(name)
-        if feature_net != "inception_v3":
-            raise NotImplementedError(
-                f"FID feature_net={feature_net!r} needs models/feature_nets.py, which "
-                "comes with mode_counts and KL (ROADMAP.md, queue 1 item 3.5)")
         self.num_images = num_images
         self.minibatch = minibatch_per_gpu
+        self.feature_net = feature_net
         self.feature_net_weights = feature_net_weights
 
     def _evaluate(self, sampler, dataset_args, data_dir, **kwargs):
-        from ..models.inception import InceptionV3
-        feat_net = InceptionV3(self.feature_net_weights, device=sampler.device)
+        if self.feature_net == "inception_v3":
+            from ..models.inception import InceptionV3
+            feat_net = InceptionV3(self.feature_net_weights, device=sampler.device)
+        else:
+            from ..models.feature_nets import VGGFeatureNet
+            feat_net = VGGFeatureNet(self.feature_net_weights, device=sampler.device)
 
         cache = self._get_cache_file(dataset_args=repr(dataset_args), data_dir=data_dir,
                                      num_images=self.num_images,

@@ -222,10 +222,7 @@ class MetricGroup:
 
 
 def make_metric(name: str, func_name: str, **kwargs) -> MetricBase:
-    """The metric of a registry entry (``metric_defaults``); one that is
-    not ported yet raises ``NotImplementedError`` naming its ROADMAP item."""
-    from .metric_defaults import check_ported
-    check_ported(name, func_name)
+    """The metric of a registry entry (``metric_defaults``)."""
     return get_obj_by_name(func_name)(name=name, **kwargs)
 
 

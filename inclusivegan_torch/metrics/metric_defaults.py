@@ -1,11 +1,6 @@
 """The metric registry, ported from
 ``inclusivegan_tpu/metrics/metric_defaults.py``: the same names and
-arguments, with ``func_name`` in this package.
-
-FID (``fid30k``, ``fid10k``), IS (``is50k``) and ``dummy`` are ported. The
-others keep their entries, so that a name means the same in both packages,
-and ``check_ported`` refuses them with the ``ROADMAP.md`` item that brings
-each, before anything loads.
+arguments, with ``func_name`` in this package. Every metric is ported.
 """
 
 from ..utils.easydict import EasyDict
@@ -50,29 +45,10 @@ metric_defaults = {m.name: m for m in [
     EasyDict(name="dummy", func_name=f"{_P}.metric_base.DummyMetric"),
 ]}
 
-# The metric classes not ported yet, by func_name, and what brings each.
-_NOT_PORTED = {
-    f"{_P}.precision_recall.PR": "precision_recall.py (ROADMAP.md, queue 1 item 3.1)",
-    f"{_P}.perceptual_path_length.PPL":
-        "perceptual_path_length.py on the ported LPIPS (ROADMAP.md, queue 1 item 3.2)",
-    f"{_P}.linear_separability.LS": "linear_separability.py with the CelebA "
-                                    "attribute classifier (ROADMAP.md, queue 1 item 3.3)",
-    f"{_P}.mode_counts.ModeCounts": "mode_counts.py with models/feature_nets.py "
-                                    "(ROADMAP.md, queue 1 item 3.5)",
-    f"{_P}.KL.KL": "KL.py with models/feature_nets.py (ROADMAP.md, queue 1 item 3.5)",
-}
-
-
-def check_ported(name: str, func_name: str) -> None:
-    """Raise NotImplementedError if the metric's class is not ported yet."""
-    why = _NOT_PORTED.get(func_name)
-    if why is not None:
-        raise NotImplementedError(f"metric {name} is not ported yet: {why}")
-
 
 def metric_args(names) -> list:
     """The registry entries of ``names``; an unknown name raises ValueError,
-    one not ported yet NotImplementedError."""
+    before anything loads."""
     out = []
     for name in names:
         if name not in metric_defaults:
@@ -84,9 +60,8 @@ def metric_args(names) -> list:
 
 
 def check_metric_args(metric_arg_list) -> None:
-    """Build each metric of ``metric_arg_list`` without running it: a
-    metric, or an option of one, that is not ported yet raises
-    NotImplementedError here, before anything loads."""
+    """Build each metric of ``metric_arg_list`` without running it: a bad
+    argument raises here, before anything loads."""
     from .metric_base import make_metric
     for args in metric_arg_list:
         make_metric(**dict(args))

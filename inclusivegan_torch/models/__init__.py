@@ -1,1 +1,2 @@
-"""The port's StyleGAN2 generator."""
+"""The port's networks: StyleGAN2's generator and discriminator, LPIPS,
+InceptionV3 and the metrics' feature nets."""

@@ -3,9 +3,10 @@ from ``inclusivegan_tpu/models/lpips.py``.
 
 Parameters are a dict of tensors in the JAX package's layout, with conv
 weights turned to OIHW: ``{"_mode": 0|1|2, "conv1_1": {"w", "b"}, ...,
-"lin_conv1_2": [C], ...}``. Mode 1 is converted weights
-(``load_lpips_params``), mode 2 the pixel-pyramid fallback, which has no conv
-leaves. The trunk runs in the ``dtype`` the caller asks for (float32 by
+"lin_conv1_2": [C], ...}``. Mode 0 is seeded random features
+(``random_lpips_tree``, the VGG feature net's default), mode 1 converted
+weights (``load_lpips_params``), mode 2 the pixel-pyramid fallback, which has
+no conv leaves. The trunk runs in the ``dtype`` the caller asks for (float32 by
 default, bfloat16 with the training loop's ``--dtype bfloat16``); its tap
 maps are channel-normalized in float32 (``norm="f32"``, the default) or, with
 ``norm="trunk"``, in the trunk's dtype with a float32 sum of squares
@@ -36,6 +37,7 @@ _SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 _PIXEL_SCALES = 5
 _PIXEL_CALIBRATION = 1.0  # divided by the scale count in the lin heads
+_RANDOM_FEATURE_CALIBRATION = 60.0  # divided by the tap's width in the lin heads
 
 # The drop-in location of converted weights, as in the JAX package.
 DEFAULT_WEIGHTS_PATH = os.path.join(
@@ -61,6 +63,39 @@ def lpips_params_from_numpy(tree: Dict[str, Any], device="cuda") -> Params:
     return params
 
 
+def random_lpips_tree(seed: int = 0) -> Dict[str, Any]:
+    """Seeded random-feature parameters (mode 0) as a numpy tree in the JAX
+    layout, with the JAX package's distributions (conv weights
+    N(0, 2 / (9 cin)), biases 0, heads 60 / width) from a CPU
+    ``torch.Generator``, not its stream: ``lpips_params_from_numpy`` carries
+    the JAX package's own draws across."""
+    gen = torch.Generator().manual_seed(seed)
+    tree: Dict[str, Any] = {"_mode": np.array(0)}
+    cin = 3
+    for name, cout, _pool in _VGG_LAYOUT:
+        std = math.sqrt(2.0 / (3 * 3 * cin))
+        tree[name] = {"w": (torch.randn((3, 3, cin, cout), generator=gen) * std).numpy(),
+                      "b": np.zeros((cout,), np.float32)}
+        cin = cout
+    widths = {n: c for n, c, _ in _VGG_LAYOUT}
+    for tap in _TAPS:
+        tree[f"lin_{tap}"] = np.full((widths[tap],),
+                                     _RANDOM_FEATURE_CALIBRATION / widths[tap], np.float32)
+    return tree
+
+
+def read_lpips_tree(path: str) -> Dict[str, Any]:
+    """Converted weights (an npz with keys '<conv>_w', '<conv>_b',
+    'lin_<tap>') as a numpy tree in the JAX layout, mode 1."""
+    data = np.load(path)
+    tree: Dict[str, Any] = {"_mode": np.array(1)}
+    for name, _c, _p in _VGG_LAYOUT:
+        tree[name] = {"w": data[f"{name}_w"], "b": data[f"{name}_b"]}
+    for tap in _TAPS:
+        tree[f"lin_{tap}"] = data[f"lin_{tap}"]
+    return tree
+
+
 def init_pixel_fallback_params(device="cuda") -> Params:
     """Multi-scale pixel-MSE params: uniform heads, no conv leaves."""
     params: Params = {"_mode": 2}
@@ -72,13 +107,7 @@ def init_pixel_fallback_params(device="cuda") -> Params:
 
 def load_lpips_params(path: str, device="cuda") -> Params:
     """Converted weights: an npz with keys '<conv>_w', '<conv>_b', 'lin_<tap>'."""
-    data = np.load(path)
-    tree: Dict[str, Any] = {"_mode": np.array(1)}
-    for name, _c, _p in _VGG_LAYOUT:
-        tree[name] = {"w": data[f"{name}_w"], "b": data[f"{name}_b"]}
-    for tap in _TAPS:
-        tree[f"lin_{tap}"] = data[f"lin_{tap}"]
-    return lpips_params_from_numpy(tree, device)
+    return lpips_params_from_numpy(read_lpips_tree(path), device)
 
 
 def get_lpips_params(weights_path: Optional[str] = None, device="cuda") -> Params:

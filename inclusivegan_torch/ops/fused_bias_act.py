@@ -36,16 +36,26 @@ class _Act(NamedTuple):
     def_gain: float
 
 
+def _sigmoid(x):
+    """``jax.nn.sigmoid``: in bfloat16 and float16 ``1 / (1 + exp(-x))``,
+    each op rounded in ``x``'s dtype, as XLA expands the logistic;
+    ``torch.sigmoid`` rounds once and differs in about 30% of such values.
+    float32 takes ``torch.sigmoid``."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 activation_funcs = {
     "linear":   _Act(lambda x, a: x,                                0.0, 1.0),
     "relu":     _Act(lambda x, a: torch.clamp_min(x, 0.0),          0.0, math.sqrt(2)),
     "lrelu":    _Act(lambda x, a: torch.where(x >= 0, x, x * a),    0.2, math.sqrt(2)),
     "tanh":     _Act(lambda x, a: torch.tanh(x),                    0.0, 1.0),
-    "sigmoid":  _Act(lambda x, a: torch.sigmoid(x),                 0.0, 1.0),
+    "sigmoid":  _Act(lambda x, a: _sigmoid(x),                      0.0, 1.0),
     "elu":      _Act(lambda x, a: F.elu(x),                         0.0, 1.0),
     "selu":     _Act(lambda x, a: F.selu(x),                        0.0, 1.0),
     "softplus": _Act(lambda x, a: F.softplus(x),                    0.0, 1.0),
-    "swish":    _Act(lambda x, a: x * torch.sigmoid(x),             0.0, math.sqrt(2)),
+    "swish":    _Act(lambda x, a: x * _sigmoid(x),                  0.0, math.sqrt(2)),
 }
 
 

@@ -3,27 +3,40 @@
 ``--network`` against the ``--dataset`` under ``--data-dir``, and appends
 its line to ``metric-<name>.txt`` in a new run dir under ``--result-dir``.
 
-FID (``fid30k``, ``fid10k``), IS (``is50k``) and ``dummy`` are ported; naming
-another metric of the registry raises ``NotImplementedError`` with its
-``ROADMAP.md`` item before anything loads. ``main`` switches TF32 off for
-cuDNN's convolutions and for matrix products, so that Gs and InceptionV3
-compute in float32 on the card, as in the JAX package; ``--device cpu``
-evaluates on the CPU.
+Every name of the registry runs; an unknown one raises before anything
+loads. As in the JAX package, ``--lpips-weights`` goes to the PPL metrics
+only, and ``--classifier-weights`` to ``mode_counts_*`` and ``KL*`` only.
+``main`` switches TF32 off for cuDNN's convolutions and for matrix
+products, so that the Gs and the metrics' nets compute in float32 on the
+card, as in the JAX package; ``--device cpu`` evaluates on the CPU.
 
     python -m inclusivegan_torch.run_metrics --network PKL --data-dir DIR \\
-        --dataset NAME --metrics fid30k,is50k --mirror-augment true
+        --dataset NAME --metrics fid30k,is50k,pr50k3,ppl_wend,ls \\
+        --mirror-augment true --lpips-weights NPZ
 """
 
 import argparse
 
 import torch
 
-from .metrics.metric_defaults import metric_args
+from .metrics.metric_defaults import metric_args, metric_defaults
 from .utils.run_harness import SubmitConfig, submit_run
 
 
+def metric_with_weights(args, lpips_weights=None, classifier_weights=None) -> dict:
+    """A registry entry with the command line's weights where the JAX
+    package's CLI routes them: LPIPS to PPL, the stacked-MNIST classifier to
+    mode_counts and KL."""
+    func_name = args.get("func_name", "")
+    if lpips_weights and "perceptual_path_length" in func_name:
+        args = dict(args, lpips_weights=lpips_weights)
+    if classifier_weights and ("mode_counts" in func_name or func_name.endswith("KL.KL")):
+        args = dict(args, classifier_weights=classifier_weights)
+    return args
+
+
 def run(submit_config, network_pkl, metrics, dataset, data_dir, mirror_augment=False,
-        device="cuda"):
+        lpips_weights=None, classifier_weights=None, device="cuda"):
     """Evaluate ``metrics`` (registry entries) on ``network_pkl``; returns
     {name + suffix: value}."""
     from .metrics import metric_base
@@ -32,6 +45,7 @@ def run(submit_config, network_pkl, metrics, dataset, data_dir, mirror_augment=F
     dataset_args = {"tfrecord_dir": dataset, "max_label_size": "full"}
     results = {}
     for args in metrics:
+        args = metric_with_weights(args, lpips_weights, classifier_weights)
         results.update(metric_base.run_metric(
             args, network_pkl=network_pkl, dataset_args=dataset_args,
             data_dir=data_dir, run_dir=submit_config.run_dir,
@@ -62,8 +76,8 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--result-dir", default="results", metavar="DIR")
     parser.add_argument("--network", dest="network_pkl", required=True)
     parser.add_argument("--metrics", default="fid30k", type=_parse_comma_sep,
-                        help="comma-separated registry names; ported: fid30k, "
-                             "fid10k, is50k, dummy")
+                        help="comma-separated registry names: "
+                             + ", ".join(metric_defaults))
     parser.add_argument("--dataset", required=True)
     parser.add_argument("--data-dir", required=True)
     parser.add_argument("--num-gpus", "--num-devices", dest="num_devices", type=int,
@@ -72,6 +86,14 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--mirror-augment", default=False, type=_str_to_bool,
                         metavar="BOOL", help="mirror-augment the reals, so that their "
                         "statistics match an augmented training run")
+    parser.add_argument("--lpips-weights", default=None, type=str,
+                        help="LPIPS npz for the perceptual metrics (ppl_*); default: "
+                             "metrics_weights/vgg16_zhang_perceptual.npz if present, "
+                             "else the pixel-pyramid fallback")
+    parser.add_argument("--classifier-weights", default=None, type=str,
+                        help="stacked-MNIST classifier npz for mode_counts_*/KL*; "
+                             "default: metrics_weights/stacked_mnist_classifier.npz "
+                             "if present, else a tagged random-init classifier")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return vars(parser.parse_args(argv))
 

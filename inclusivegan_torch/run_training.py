@@ -10,10 +10,10 @@ before anything loads, so that the card computes in float32 as the JAX
 package does; the IMLE retrieval relies on it. ``--dtype bfloat16`` computes
 G, D and the LPIPS trunk in bfloat16 from a fresh init (the JAX package's
 float32 islands kept). ``--metrics`` takes the registry's names (default
-``none``) and runs them at every network snapshot: FID and IS are ported;
-another metric of the registry raises ``NotImplementedError`` before the run
-starts, as do ``--invariant-rng true``, ``--knn-backend dci`` and
-``--num-gpus`` over 1 (each names its ``ROADMAP.md`` item; an ``auto``
+``none``) and runs them at every network snapshot; an unknown name raises
+before the run starts. ``--invariant-rng true``, ``--knn-backend dci`` and
+``--num-gpus`` over 1 raise ``NotImplementedError`` before the run starts
+(each names its ``ROADMAP.md`` item; an ``auto``
 backend over the exact budget, and a minibatch that needs gradient
 accumulation, are refused by the loop before it builds the networks).
 
@@ -32,7 +32,7 @@ import sys
 
 import torch
 
-from .metrics.metric_defaults import metric_args
+from .metrics.metric_defaults import metric_args, metric_defaults
 from .utils.easydict import EasyDict
 from .utils.run_harness import SubmitConfig, submit_run
 
@@ -211,8 +211,8 @@ def parse_args(argv=None) -> dict:
                         type=_str_to_bool)
     parser.add_argument("--metrics", default="none", type=_parse_comma_sep,
                         help="none (default) or comma-separated registry names, "
-                             "run at every network snapshot; ported: fid30k, "
-                             "fid10k, is50k, dummy")
+                             "run at every network snapshot: "
+                             + ", ".join(metric_defaults))
     parser.add_argument("--minibatch-gpu", metavar="N", default=6, type=int)
     parser.add_argument("--data-size", metavar="N", default=30000, type=int)
     parser.add_argument("--num-epochs", metavar="N", default=10000, type=int)

@@ -35,8 +35,9 @@ card by the train step on this thread. The card's peak memory
 (``torch.cuda.max_memory_allocated``) is reported at each tick.
 
 Not ported yet, and refused before anything runs: gradient accumulation
-and ``invariant_rng``, the DCI backend, more than one device, and the
-metrics other than FID and IS (``ROADMAP.md`` queue 1).
+and ``invariant_rng``, the DCI backend and more than one device
+(``ROADMAP.md`` queue 1). Each metric of ``metric_arg_list`` is built once
+before the networks, so that a bad argument raises first.
 """
 
 import os
@@ -94,7 +95,8 @@ def load_snapshot(path: str, device="cuda"):
 
 def _refuse_unported(num_devices, invariant_rng, knn_backend, metric_arg_list):
     """Raise NotImplementedError for what the port does not do yet, each
-    with its ``ROADMAP.md`` item, before anything loads."""
+    with its ``ROADMAP.md`` item, and build the metrics, before anything
+    loads."""
     if invariant_rng:
         raise NotImplementedError("invariant_rng is not ported yet (ROADMAP.md, "
                                   "queue 1 item 4)")

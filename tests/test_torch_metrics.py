@@ -10,8 +10,8 @@ every JAX metric here, so that its CPU compile happens once. Results within
 relative 1e-4 (IS's standard deviation over two near-equal splits, near 0,
 within 1e-4 relative + 1e-7 absolute). ``GsSampler``: the same snapshot, latents from the same seed
 and the JAX sampler's noise draws handed to the port; images within 1 uint8
-level. Registry: the same names and arguments; the metrics not ported yet
-refused with their ROADMAP item.
+level. Registry: the same names and arguments, every metric built in both
+packages; the CLI's weights routed as the JAX CLI routes them.
 """
 
 import os
@@ -57,21 +57,28 @@ def test_registry_has_the_jax_names_and_arguments():
             {k: v for k, v in jargs.items() if k != "func_name"}
 
 
-@pytest.mark.parametrize("name,item", [
-    ("pr50k3", "3.1"), ("ppl_wend", "3.2"), ("ppl_zfull", "3.2"), ("ls", "3.3"),
-    ("mode_counts_24k", "3.5"), ("KL24k", "3.5")])
-def test_unported_metrics_are_refused_with_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        metric_args(["fid30k", name])
+@pytest.mark.parametrize("name", list(jax_defaults))
+def test_every_registry_name_builds_in_both_packages(name):
+    """Every metric of the registry builds in both packages from the same
+    arguments; nothing is refused any longer."""
+    args = dict(metric_defaults[name])
+    jargs = dict(jax_defaults[name])
+    assert {k: v for k, v in args.items() if k != "func_name"} == \
+        {k: v for k, v in jargs.items() if k != "func_name"}
+    metric, jmetric = tmb.make_metric(**args), jmb.make_metric(**jargs)
+    assert type(metric).__name__ == type(jmetric).__name__
+    assert type(metric).__module__.startswith("inclusivegan_torch.metrics.")
+    assert metric.name == jmetric.name == name
 
 
 def test_ported_metrics_and_unknown_names():
-    assert [m.name for m in metric_args(["fid30k", "fid10k", "is50k", "dummy"])] == \
-        ["fid30k", "fid10k", "is50k", "dummy"]
+    names = list(metric_defaults)
+    assert [m.name for m in metric_args(names)] == names
     with pytest.raises(ValueError, match="unknown metric"):
         metric_args(["fid50k"])
-    with pytest.raises(NotImplementedError, match="feature_nets"):
-        check_metric_args([dict(metric_defaults["fid30k"], feature_net="vgg")])
+    check_metric_args([dict(metric_defaults["fid30k"], feature_net="vgg")])
+    with pytest.raises(AssertionError):
+        check_metric_args([dict(metric_defaults["ppl_wend"], space="x")])
 
 
 def test_mirror_augment_and_run_config_match_jax(tmp_path):
@@ -223,11 +230,31 @@ def test_run_metrics_cli_on_a_16px_snapshot(snapshot_16px, toy_dataset, tmp_path
 
 
 def test_run_metrics_cli_refuses_before_loading(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.1"):
-        run_metrics.main(["--network", "missing.pkl", "--metrics", "fid10k,pr50k3",
-                          "--data-dir", str(tmp_path), "--dataset", "x",
-                          "--result-dir", str(tmp_path / "results")])
+    """An unknown name, or more than one card, raises before a run dir is
+    made."""
+    argv = ["--network", "missing.pkl", "--data-dir", str(tmp_path), "--dataset", "x",
+            "--result-dir", str(tmp_path / "results")]
+    with pytest.raises(ValueError, match="unknown metric"):
+        run_metrics.main(argv + ["--metrics", "fid10k,pr50"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        run_metrics.main(argv + ["--metrics", "pr50k3", "--num-gpus", "2"])
     assert not (tmp_path / "results").exists()
+
+
+@pytest.mark.parametrize("name,lpips,classifier", [
+    ("ppl_wend", True, False), ("ppl2_wend", True, False), ("mode_counts_24k", False, True),
+    ("KL24k", False, True), ("ls", False, False), ("fid30k", False, False)])
+def test_run_metrics_routes_weights_as_the_jax_cli(name, lpips, classifier, monkeypatch):
+    """``--lpips-weights`` reaches the PPL metrics only, ``--classifier-weights``
+    mode_counts and KL only, as the JAX package's ``run_metrics.run`` routes
+    them."""
+    seen = []
+    monkeypatch.setattr(tmb, "run_metric", lambda args, **kw: seen.append(args) or {})
+    run_metrics.run(SubmitConfig(run_dir="x"), "net.pkl", [metric_defaults[name]], "ds",
+                    "dir", lpips_weights="l.npz", classifier_weights="c.npz", device="cpu")
+    (args,) = seen
+    assert args.get("lpips_weights") == ("l.npz" if lpips else None)
+    assert args.get("classifier_weights") == ("c.npz" if classifier else None)
 
 
 def test_loop_runs_metrics_at_each_network_snapshot(toy_dataset, tmp_path):  # noqa: F811

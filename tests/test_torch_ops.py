@@ -4,6 +4,8 @@ its autograd Function. float32, atol = rtol = 1e-5 for values; gradients,
 first and second order, against jax.grad at rtol 1e-4, atol 1e-5 (the
 tolerance of tests/test_ops.py for its own gradient checks)."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -432,3 +434,24 @@ def test_kernel_scalars_match_the_plain_versions(dtype):
     y = tops.fused_bias_act(x, torch.zeros(2, dtype=dtype), axis=0, act="lrelu",
                             alpha=alpha, gain=gain)
     assert y.tolist() == [float(x[0] * a * g), float(g)]
+
+
+# sigmoid and swish in 16 bits: the port rounds each op of 1 / (1 + exp(-x))
+# in the storage dtype, as XLA expands jax.nn.sigmoid; exact against the JAX
+# package, and against the bits stored for the card's check
+# (tests/torch_golden/make_activation_bits.py).
+
+ACT_BITS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "inclusivegan_torch", "testdata", "activation_bits.npz")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("act", ["sigmoid", "swish"])
+def test_sigmoid_and_swish_exact_in_16_bits(act, dtype):
+    bits = np.load(ACT_BITS)
+    xj, xt = _both(bits["x"], dtype)
+    bj, bt = _both(bits["b"], dtype)
+    y = tops.fused_bias_act(xt, bt, act=act)
+    _assert_same(y, jops.fused_bias_act(xj, bj, act=act))
+    np.testing.assert_array_equal(y.view(torch.int16).numpy().view(np.uint16),
+                                  bits[f"{act}/{dtype}"])

@@ -94,13 +94,26 @@ def test_help_says_float32_and_metrics_none(capsys):
     text = " ".join(capsys.readouterr().out.split())
     assert "TF32 is switched off" in text
     assert "none (default) or comma-separated registry names" in text
-    assert "ported: fid30k, fid10k, is50k, dummy" in text
+    assert "run at every network snapshot: mode_counts_24k, KL24k, fid30k" in text
     assert "activation dtype of G, D and the LPIPS trunk" in text
 
 
+@pytest.mark.parametrize("metrics", ["fid30k,pr50k3", "ppl_wend,ls,mode_counts_24k,KL24k"])
+def test_every_metric_reaches_the_loop(metrics, monkeypatch, tmp_path):
+    """Every registry name is built before the run and handed to the loop
+    at every network snapshot; an unknown one raises first."""
+    seen = {}
+    monkeypatch.setattr(run_training, "submit_run",
+                        lambda sc, fn, **kw: seen.update(kw))
+    run_training.main(["--data-dir", str(tmp_path), "--dataset", "x",
+                       "--metrics", metrics])
+    assert [m.name for m in seen["metric_arg_list"]] == metrics.split(",")
+    with pytest.raises(ValueError, match="unknown metric"):
+        run_training.main(["--data-dir", str(tmp_path), "--dataset", "x",
+                           "--metrics", metrics + ",ppl"])
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--metrics", "fid30k,pr50k3"], "queue 1 item 3.1"),
-    (["--metrics", "ppl_wend"], "queue 1 item 3.2"),
     (["--invariant-rng", "true"], "queue 1 item 4"),
     (["--knn-backend", "dci"], "queue 1 item 5"),
     (["--num-gpus", "2"], "queue 1 item 6"),

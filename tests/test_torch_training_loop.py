@@ -222,12 +222,20 @@ def test_default_device_needs_cuda(toy_dataset, monkeypatch, tmp_path):
         training_loop(**_args(toy_dataset))
 
 
+@pytest.mark.parametrize("metric_args", [
+    [metric_defaults["fid30k"], dict(metric_defaults["ppl_wend"], space="x")],
+    [dict(metric_defaults["ppl_zfull"], sampling="middle")],
+    [metric_defaults["pr50k3"], dict(metric_defaults["ls"], attrib_indices=40)]])
+def test_bad_metric_arguments_raise_before_the_networks(toy_dataset, metric_args, tmp_path):
+    """Every metric is built before anything loads: a bad argument raises
+    first, before the dataset is opened."""
+    from inclusivegan_torch.training.training_loop import training_loop
+    with pytest.raises((AssertionError, TypeError)):
+        training_loop(**_args(toy_dataset, device="cpu", metric_arg_list=metric_args,
+                              data_dir=str(tmp_path / "no-data")))
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(metric_arg_list=[metric_defaults["fid30k"], metric_defaults["pr50k3"]]),
-     "queue 1 item 3.1"),
-    (dict(metric_arg_list=[metric_defaults["ls"]]), "queue 1 item 3.3"),
-    (dict(metric_arg_list=[dict(metric_defaults["fid10k"], feature_net="vgg")]),
-     "queue 1 item 3.5"),
     (dict(invariant_rng=True), "queue 1 item 4"),
     (dict(sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB // 2)),
      "queue 1 item 4"),

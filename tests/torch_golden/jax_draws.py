@@ -136,3 +136,35 @@ def to_torch(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
     return torch.as_tensor(np.asarray(tree), device=device)
+
+
+def ppl_noise(G, num_batches):
+    """The batch-shared synthesis noise ([1, 1, h, w] per layer) of each
+    minibatch of the JAX ``PPL._evaluate``: ``init_noise`` of the keys split
+    in turn from ``random.key(0)``."""
+    key, out = random.key(0), []
+    for _ in range(num_batches):
+        key, k = random.split(key)
+        out.append(synthesis_noise(G, k, 1))  # init_noise splits as synthesis does
+    return out
+
+
+def sampler_noise(G, seed, num_batches, batch):
+    """The synthesis noise of each minibatch of the JAX ``GsSampler.run``
+    (``random.key(seed)`` split in turn, then ``GMain.apply``'s split)."""
+    key, out = random.key(seed), []
+    for _ in range(num_batches):
+        key, k = random.split(key)
+        _, krng = random.split(k)
+        out.append(synthesis_noise(G, krng, batch))
+    return out
+
+
+def projector_noise(seed, num_steps, shape):
+    """The noise latents of each step of the JAX ``Projector`` started with
+    ``seed``: [num_steps, *shape]."""
+    key, out = random.key(seed), []
+    for _ in range(num_steps):
+        key, k = random.split(key)
+        out.append(_np(random.normal(k, shape)))
+    return np.stack(out)
