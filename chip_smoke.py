@@ -114,15 +114,44 @@ Phases, each logged with the seconds since start:
      projector's ms per step with the kernels and the plain versions in
      turns, IvOM seconds per image at 400 steps; the kernels at the
      projector's shapes (ms, plain, bound, cuDNN, launches per step).
+ 15. the host DCI retrieval backend, its routing, gradient accumulation and
+     invariant_rng: ``libdci`` and ``libdatakit`` built with ``g++`` (their
+     seconds); the index alone at the production shape (dim 512, 3 x 15
+     directions, 2 levels) on 8192 to 131072 points of ``dci/example.py``'s
+     generator, its build seconds fitted as c * n**p (c, p and the
+     extrapolation to the CelebA run's 300,000 candidates printed beside the
+     committed constants), 13107 queries against the exact 1-NN on the card
+     (every DCI distance at least the exact one less 1e-4; recall@1 read),
+     and recall@1 of 500 of them at three larger ``max_visits`` (each
+     query's distance no larger than at the smaller budget); the full-width
+     IMLE rebuild of the CelebA snapshot's G with ``knn_backend="dci"``,
+     10240 candidates and the first 1024 of phase 14's reals as queries,
+     against ``"exact"`` from the same candidates (distances held as above,
+     the share of equal latents read), and both backends in exclusive mode
+     on every 10th rendered candidate as queries (each query takes the
+     first unused of its neighbours; exact's picks all distinct), with the
+     launch counts; ``auto`` over both budgets raising with guidance and
+     ``dci`` over its time budget warning and running; one iteration at
+     minibatch 12 as 2 rounds of 6 and one with ``invariant_rng``, each
+     phase kernel path against plain path with phase 9's limits and launch
+     counts, R1 at 2 rounds against 1 round of 12 with the minibatch
+     stddev off, the invariant draws at offsets 0 and 6 against the whole
+     batch bit for bit, and seconds per iteration of each (of the plain and
+     invariant steps also without the regularizers); phase 12's dataset
+     written again through datakit (ms per image, every record's CRC32C
+     against the pure-Python one), then ``run_training`` for 4 iterations with
+     ``--knn-backend dci`` and with ``--invariant-rng true``, and
+     ``submit_run`` with minibatch 12 over 6 per device, each with its
+     launch counts set to 0 just before and read just after.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
-300 s, phase 12 under 240 s, phase 13 under 300 s and phase 14 under 150 s;
-a run over any budget fails. Any failure raises and the script
-exits non-zero. The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Each kernel's record takes its
-``launches`` and its timings (shape, ms, plain, bound, library) from the
-IvOM projector of phase 14, the main path of the evaluation slice; the
-timing of phase 6 or 11 stands under ``earlier_timing``, and every path's
-launches under ``launches_by_path``.
+300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s and
+phase 15 under 150 s; a run over any budget fails. Any failure raises and
+the script exits non-zero. The last two lines are the kernels' JSON record
+and ``{"ok": true, "device": {...}}``. Each kernel's record takes its
+``launches`` and its timings (shape, ms, plain, bound, library) from one
+path, the IvOM projector of phase 14; the timing of phase 6 or 11 stands
+under ``earlier_timing``, and every path's launches, phase 15's
+``run_training --knn-backend dci`` among them, under ``launches_by_path``.
 """
 
 import contextlib
@@ -139,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 T0 = time.time()
@@ -263,7 +293,7 @@ CLI_METRIC = "fid10k"  # run_metrics at the registry's full 10000 fakes
 # steps for the projector (300 of 400), LS_CUT for ls (200000 and 100000),
 # MNIST_IMAGES for mode_counts and KL (24576). The reals are phase 12's
 # seeded set, extended to EVAL_IMAGES and written by another process while
-# phases 12 and 13 run (the port's pure-Python CRC takes ~20 s for them).
+# phases 12 and 13 run.
 EVAL_BUDGET_S = 150
 EVAL_IMAGES = 2048
 PROJ_IMAGES, PROJ_MB, PROJ_STEPS, PROJ_SNAPSHOTS = 50, 50, 40, 5
@@ -303,6 +333,34 @@ SVM_AGREE = 0.999
 # (PR_SYNTH_N points of rank PR_SYNTH_RANK in 1472 dimensions, the eval set
 # shifted by PR_SYNTH_SHIFT: about 0.84 and 0.82).
 PR_SYNTH_N, PR_SYNTH_RANK, PR_SYNTH_SHIFT = 4608, 8, 0.5
+# Phase 15, the host DCI retrieval backend, knn_backend routing, gradient
+# accumulation and invariant_rng. The index alone at the production shape
+# (--init-proj-dim 512, 3 x 15 directions, 2 levels) on DCI_SIZES points of
+# dci/example.py's generator (intrinsic dimension 50, as there), its build
+# time fitted as c * n**p; DCI_QUERIES queries (a tenth of the largest n) at
+# the orchestrator's settings (k 1, field of view 200) against the exact
+# 1-NN on the card: a DCI distance is never below the exact one by more than
+# DCI_DIST_ATOL (both are distances of real points; the exact neighbour's
+# taken in float64 here, and in the rebuild its float32 distance on the card
+# against DCI's float64 on the host). Recall@1 at the production shape is
+# read, not held: the library, the JAX package's unchanged, gives about 0.01
+# there (tests/torch_golden/dci_recall.py; ROADMAP.md, queue 3); on the
+# first DCI_SWEEP_QUERIES queries it is read again at each max_visits of
+# DCI_SWEEP_VISITS, where each query's distance may only fall as the budget
+# grows. The full-width rebuild cut to
+# DCI_REBUILD (the CelebA run: 300,000 candidates, 30,000 queries), and
+# ACCUM_MB as ACCUM_ROUNDS rounds; ACCUM_DATA_SIZE divides by 2 * ACCUM_MB.
+DCI_BUDGET_S = 150
+DCI_SIZES = (8192, 16384, 32768, 65536, 131072)
+DCI_DIM, DCI_INTRINSIC, DCI_QUERIES = 512, 50, 13107
+DCI_TABLES, DCI_LEVELS, DCI_FOV = (3, 15), 2, 200
+DCI_DIST_ATOL = 1e-4
+DCI_SWEEP_QUERIES = 500  # recall against max_visits: the first 500 queries,
+DCI_SWEEP_VISITS = (32768, 131072, 524288)  # beyond the default 8192
+DCI_PRODUCTION_CANDIDATES = 300_000
+DCI_REBUILD = dict(data_size=1024, num_samples_factor=10, candidate_batch_size=1024,
+                   init_proj_dim=512)
+ACCUM_MB, ACCUM_ROUNDS, ACCUM_DATA_SIZE = 12, 2, 48
 # the keys of a kernel record that one timing at one shape gives
 TIMING_KEYS = ("shape", "config", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 ACT_BITS = os.path.join(HERE, "inclusivegan_torch", "testdata", "activation_bits.npz")
@@ -2290,6 +2348,570 @@ def evaluation_phase(np, torch, ck, eval_data):
     return launches, errs, records
 
 
+def fit_power_law(np, sizes, seconds):
+    """(c, p) of t = c * n**p, least squares in log-log, as
+    scripts/bench_dci_build.py fits it."""
+    p, logc = np.polyfit(np.log(sizes), np.log(seconds), 1)
+    return float(np.exp(logc)), float(p)
+
+
+def compare_paths(torch, ck, steps, batch, draws, state0, expected, label, failures):
+    """Each phase of one iteration, kernel path against plain path from one
+    state and one set of draws, under deterministic algorithms, with phase
+    9's limits; the kernel path's launch counts against ``expected``."""
+    runs = {impl: phase_runners(steps[impl], batch, draws, LRATE, LRATE, GS_BETA,
+                                TRAIN_CONFIG["NN_rec_lpips_weight"]) for impl in steps}
+    atol, rtol = TRAIN_SCALAR_TOL
+    worst_all = 0.0
+    with deterministic(torch):
+        cur = copy.deepcopy(state0)
+        for name, opt in PHASES:
+            before = copy.deepcopy(cur)
+            ck.reset_launches()
+            cur, sk = runs["cuda"][name](cur)
+            torch.cuda.synchronize()
+            counts = dict(ck.launches)
+            ref, sp = runs["plain"][name](before)
+            torch.cuda.synchronize()
+            if counts != expected[name]:
+                failures.append(f"{label} {name}: launches {counts} != {expected[name]}")
+            if dict(ck.launches) != counts:
+                failures.append(f"{label} {name}: the plain path launched a kernel")
+            bad = [k for k, v in sp.items()
+                   if not abs(sk[k].item() - v.item()) <= atol + rtol * abs(v.item())]
+            m_k, m_p = getattr(cur, opt).m, getattr(ref, opt).m
+            worst = max((rel_l2(torch, m_k[k], m_p[k]), k) for k in m_p)
+            worst_all = max(worst_all, worst[0])
+            log(f"{label} {name}: launches {counts}; {len(sp)} scalars "
+                f"{'agree' if not bad else 'DISAGREE ' + str(bad)}; {len(m_p)} gradients, "
+                f"largest relative L2 error {worst[0]:.3e} ({worst[1]}; limit "
+                f"{TRAIN_GRAD_REL_L2:g})")
+            if bad or not worst[0] <= TRAIN_GRAD_REL_L2:
+                failures.append(f"{label} {name}: kernel path disagrees with plain path")
+            del before, ref
+    return cur, worst_all
+
+
+def seconds_per_iteration(torch, variants, reps=3, regs=True):
+    """Median host seconds of one iteration of each variant, name -> (step,
+    state, batch, generator), with both lazy regularizers or neither, the
+    variants in turns after one warm-up each; the card synchronized at both
+    ends."""
+    secs = {name: [] for name in variants}
+    for rep in range(reps + 1):
+        order = list(variants) if rep % 2 == 0 else list(variants)[::-1]
+        for name in order:
+            step, state, batch, gen = variants[name]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, batch, gen, LRATE, LRATE, GS_BETA, do_g_reg=regs, do_d_reg=regs)
+            torch.cuda.synchronize()
+            if rep:
+                secs[name].append(time.perf_counter() - t)
+    return {name: statistics.median(v) for name, v in secs.items()}
+
+
+def dci_alone(np, torch, failures):
+    """Phase 15, step 2: the index alone at the production shape, fitted on
+    this host, and held against the exact 1-NN on the card."""
+    from inclusivegan_torch.dci import DCI
+    from inclusivegan_torch.dci.example import gen_data
+    from inclusivegan_torch.training import imle as timle
+    n_max = max(DCI_SIZES)
+    x = gen_data(DCI_DIM, DCI_INTRINSIC, n_max + DCI_QUERIES, seed=0)
+    data, queries = x[:n_max], x[n_max:]
+    builds = []
+    for n in DCI_SIZES:
+        index = DCI(DCI_DIM, *DCI_TABLES, seed=1)
+        pv = torch.as_tensor(index.proj_vec.T, dtype=torch.float32, device="cuda")
+        proj = (torch.as_tensor(data[:n], dtype=torch.float32, device="cuda") @ pv)
+        proj = proj.double().cpu().numpy()
+        t = time.perf_counter()
+        index.add(data[:n], num_levels=DCI_LEVELS, projections=proj)
+        builds.append(time.perf_counter() - t)
+        log(f"DCI build, n = {n}: {builds[-1]:.3f} s")
+    c, p = fit_power_law(np, DCI_SIZES, builds)
+    committed = (timle._DCI_BUILD_COEF, timle._DCI_BUILD_EXP, timle._DCI_BUILD_FIT_CORES)
+    log(f"DCI build fit on this host ({os.cpu_count()} cores): t = {c:.4e} * n**{p:.4f}; "
+        f"{c * DCI_PRODUCTION_CANDIDATES ** p:.1f} s extrapolated to the CelebA run's "
+        f"{DCI_PRODUCTION_CANDIDATES} candidates; committed (coef, exp, cores) {committed}, "
+        f"giving {timle.estimate_dci_build_seconds(DCI_PRODUCTION_CANDIDATES):.1f} s here")
+    if (f"{c:.3g}", f"{p:.3g}", os.cpu_count()) != (f"{committed[0]:.3g}",
+                                                   f"{committed[1]:.3g}", committed[2]):
+        log(f"the fit differs from the committed constants: new _DCI_BUILD_COEF = "
+            f"{c:.3g}, _DCI_BUILD_EXP = {p:.3g}, _DCI_BUILD_FIT_CORES = {os.cpu_count()}")
+
+    qproj = (torch.as_tensor(queries, dtype=torch.float32, device="cuda") @ pv)
+    qproj = qproj.double().cpu().numpy()
+    t = time.perf_counter()
+    ids, dists = index.query(queries, num_neighbours=1, field_of_view=DCI_FOV,
+                             projections=qproj)
+    query_s = time.perf_counter() - t
+    _, ei = timle._knn_topk(torch.as_tensor(queries, dtype=torch.float32, device="cuda"),
+                            torch.as_tensor(data, dtype=torch.float32, device="cuda"), 1)
+    ei = ei[:, 0].cpu().numpy()
+    # the exact neighbour's distance in float64, as DCI ranks on the host
+    ed = np.sqrt(((queries - data[ei]) ** 2).sum(1))
+    got = np.array([i[0] if i else -1 for i in ids])
+    gd = np.array([d[0] if d else np.inf for d in dists])
+    recall = float(np.mean(got == ei))
+    below = float((gd - ed).min())
+    log(f"DCI query of {DCI_QUERIES} points at n = {n_max} x {DCI_DIM} (k 1, field of view "
+        f"{DCI_FOV}, {DCI_LEVELS} levels, {DCI_TABLES[0]} x {DCI_TABLES[1]} directions, "
+        f"the default budgets): {query_s:.3f} s; recall@1 against the exact 1-NN on the "
+        f"card {recall:.4f}; min(DCI - exact distance, float64) {below:.3e} (limit "
+        f"-{DCI_DIST_ATOL:g}); {int(np.sum(got < 0))} queries without a neighbour")
+    if not below >= -DCI_DIST_ATOL or (got < 0).any():
+        failures.append("DCI returned a neighbour nearer than the exact one, or none")
+
+    # recall against the visit budget, on the first queries: a point is a
+    # candidate once it has been visited in all the directions of one
+    # composite index, and a larger budget walks on along the same tables,
+    # so each query's distance can only fall as the budget grows
+    sweep, prev = {}, gd[:DCI_SWEEP_QUERIES]
+    for mv in DCI_SWEEP_VISITS:
+        t = time.perf_counter()
+        sids, sd = index.query(queries[:DCI_SWEEP_QUERIES], num_neighbours=1,
+                               field_of_view=DCI_FOV, max_visits=mv,
+                               projections=qproj[:DCI_SWEEP_QUERIES])
+        secs = time.perf_counter() - t
+        sd = np.array([d[0] for d in sd])
+        r = float(np.mean(np.array([i[0] for i in sids]) == ei[:DCI_SWEEP_QUERIES]))
+        sweep[mv] = r
+        log(f"DCI recall@1 at max_visits {mv} ({DCI_SWEEP_QUERIES} queries): {r:.4f} "
+            f"in {secs:.3f} s")
+        if (sd > prev).any() or not (sd - ed[:DCI_SWEEP_QUERIES]).min() >= -DCI_DIST_ATOL:
+            failures.append(f"DCI at max_visits {mv}: a distance rose with the budget or "
+                            f"fell below the exact one")
+        prev = sd
+    return dict(build_s=builds, coef=c, exp=p, recall=recall, query_s=query_s,
+                recall_by_max_visits=sweep)
+
+
+def dci_rebuild(np, torch, ck, G, reals_dir, failures):
+    """Phase 15, step 3: the full-width DCI rebuild against the exact one
+    from the same candidates, then exclusive mode with each backend.
+    Returns the DCI rebuild's launch counts and its readings."""
+    from inclusivegan_torch.data.dataset import TFRecordDataset
+    from inclusivegan_torch.training import imle as timle
+    rec_set = TFRecordDataset(os.path.join(reals_dir, LOOP_DATASET), shuffle=False)
+    n = DCI_REBUILD["data_size"] * DCI_REBUILD["num_samples_factor"]
+    k = DCI_REBUILD["num_samples_factor"]
+    log(f"cut: {n} candidates and {DCI_REBUILD['data_size']} queries (the CelebA run: "
+        f"{DCI_PRODUCTION_CANDIDATES} and {DCI_PRODUCTION_CANDIDATES // 10})")
+    ggen = torch.Generator(device="cuda").manual_seed(7)
+    rendered, neighbours = [], []
+
+    def render(z):
+        with torch.no_grad():
+            img = G(torch.as_tensor(z, device="cuda"), truncation_psi=None, generator=ggen)
+        rendered.append(img)
+        return img
+
+    first_unused = timle._first_unused
+
+    def recording_first_unused(ids, dists):
+        neighbours.append(list(ids))
+        return first_unused(ids, dists)
+
+    def rendered_reals():
+        """Exclusive mode's queries: every k-th candidate the first rebuild
+        rendered, as uint8 reals. Each has its own candidate at a distance of
+        a rounding, so that distinct picks are possible where each query's
+        neighbours hold its own candidate; on phase 14's noise reals, which
+        share their nearest faces, they are not."""
+        img = torch.cat(rendered)[::k][:DCI_REBUILD["data_size"]]
+        u8 = ((img + 1) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+        return SimpleNamespace(get_all_images=lambda: u8)
+
+    out = {}
+    excl = dict(exclusive_retrieved_code=True)
+    with tempfile.TemporaryDirectory() as projector_dir, \
+            mock.patch.object(timle, "_first_unused", recording_first_unused):
+        for label, backend, kw in (("dci", "dci", {}), ("exact", "exact", {}),
+                                   ("dci exclusive", "dci", excl),
+                                   ("exact exclusive", "exact", excl)):
+            imle = timle.IMLEOrchestrator(
+                latent_size=G.mapping.latent_size, image_dim=3 * 128 * 128, seed=1000,
+                projector_cache_dir=projector_dir, knn_backend=backend, device="cuda",
+                **DCI_REBUILD, **kw)
+            replay = iter(list(rendered))  # the candidates the first rebuild rendered
+            if kw and "queries" not in out:
+                out["queries"] = rendered_reals()
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                imle.rebuild(render if label == "dci" else (lambda z: next(replay)),
+                             out["queries"] if kw else rec_set)
+            torch.cuda.synchronize()
+            out[label] = (imle, time.perf_counter() - t, dict(ck.launches))
+            log(f"{label} rebuild{' (rendering the candidates)' if label == 'dci' else ''}"
+                f": {out[label][1]:.3f} s, mean 1-NN distance "
+                f"{imle.selected_dists.mean():.4f}, launches {out[label][2]}")
+    dci, exact = out["dci"][0], out["exact"][0]
+    below = float((dci.selected_dists - exact.selected_dists).min())
+    same = float(np.mean((dci.selected_latents == exact.selected_latents).all(1)))
+    log(f"DCI against exact at full width: min(DCI - exact distance) {below:.3e} "
+        f"(limit -{DCI_DIST_ATOL:g}); the same latent for {same:.4f} of the queries")
+    if not below >= -DCI_DIST_ATOL:
+        failures.append("the DCI rebuild retrieved nearer than the exact one")
+
+    # exclusive mode, on rendered candidates as queries: each query, in
+    # order, takes the first of its k neighbours that no earlier query took,
+    # and an id repeats only where all k were taken; with the exact
+    # neighbours, which hold each query's own candidate, every pick differs
+    distinct = {}
+    for label, rows in zip(("dci exclusive", "exact exclusive"), neighbours):
+        orch = out[label][0]
+        index_of = {z.tobytes(): i for i, z in enumerate(orch.latent_candidates)}
+        picked = [index_of[z.tobytes()] for z in orch.selected_latents]
+        used, full, wrong = set(), 0, 0
+        for row, pick in zip(rows, picked):
+            free = [c for c in row if c not in used]
+            full += not free
+            wrong += pick != (free[0] if free else row[0])
+            used.add(pick)
+        own = float(np.mean(np.array(picked) == k * np.arange(len(picked))))
+        distinct[label] = (len(set(picked)), own)
+        log(f"{label} (k = {k}, queries: every {k}th rendered candidate as uint8): "
+            f"{len(set(picked))} distinct of {len(picked)} selected ids; {full} queries "
+            f"found all their neighbours taken; {wrong} picks differ from the first "
+            f"unused; {own:.4f} of the queries picked their own candidate")
+        if wrong or len(rows) != len(picked) or len(set(picked)) != len(picked) - full:
+            failures.append(f"{label} did not take the first unused neighbour")
+        if label == "exact exclusive" and len(set(picked)) != len(picked):
+            failures.append("exact exclusive mode repeated an id")
+    launches = out["dci"][2]
+    batches = math.ceil(n / DCI_REBUILD["candidate_batch_size"])
+    expected = dict(forward_launches(G, batches), bias_lrelu_grad=0,
+                    upfirdn2d_transposed=0)
+    check_launches("the DCI rebuild", launches, expected, failures)
+    if any(v for label in ("exact", "dci exclusive", "exact exclusive")
+           for v in out[label][2].values()):
+        failures.append("a rebuild from rendered candidates launched a kernel")
+    return launches, dict(same=same, below=below, distinct_and_own=distinct,
+                          secs={name: out[name][1] for name in
+                                ("dci", "exact", "dci exclusive", "exact exclusive")})
+
+
+def dci_routing(np, torch, failures):
+    """Phase 15, step 4: ``auto`` over a budget forced to 0 raises with its
+    guidance; ``dci`` under a zero time budget warns and runs."""
+    from inclusivegan_torch.data.dataset import SyntheticDataset
+    from inclusivegan_torch.training import imle as timle
+    w = torch.randn(16, 3 * 8 * 8, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)) * 0.3
+
+    def generate(z):
+        return torch.tanh(torch.as_tensor(z, device="cuda") @ w).reshape(-1, 3, 8, 8)
+
+    rec_set = SyntheticDataset(resolution=8, num_images=32, label_size=0, seed=5)
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.object(timle, "_EXACT_KNN_MEMORY_BUDGET", 0), \
+            mock.patch.object(timle, "_DCI_BUILD_BUDGET_S", 0.0):
+        def orchestrator(backend):
+            return timle.IMLEOrchestrator(data_size=32, num_samples_factor=4, latent_size=16,
+                                          image_dim=3 * 8 * 8, projector_cache_dir=d,
+                                          knn_backend=backend, device="cuda")
+        try:
+            orchestrator("auto").rebuild(generate, rec_set, verbose=False)
+            failures.append("auto over both budgets did not raise")
+        except RuntimeError as e:
+            log(f"auto over the exact budget (0) and the DCI time budget (0): raised "
+                f"'{str(e)[:90]}...'")
+            if "knn_backend='dci'" not in str(e):
+                failures.append("auto's refusal gives no guidance")
+        buf = io.StringIO()
+        imle = orchestrator("dci")
+        with contextlib.redirect_stdout(buf):
+            imle.rebuild(generate, rec_set, verbose=False)
+        warned = "projected to take" in buf.getvalue()
+        log(f"dci under a zero time budget: warned {warned}, ran "
+            f"{imle.selected_latents is not None}")
+        if not warned or imle.selected_latents is None:
+            failures.append("dci over its time budget did not warn and run")
+
+
+def accumulation_and_invariant(np, torch, ck, G, D, Gs, lpips, failures):
+    """Phase 15, steps 5 and 6 at full width: gradient accumulation and
+    invariant_rng, each kernel path against plain path; R1 at two rounds
+    against one; the invariant draws at two offsets; seconds per iteration."""
+    from inclusivegan_torch.profile_train import synthetic_batch
+    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_step import (
+        TrainConfig, draw_train_step, flatten_draws, make_train_step)
+    res, zdim = G.synthesis.resolution, G.mapping.latent_size
+    state0 = create_train_state(G, D, Gs)
+    per_phase = expected_launches(G, D)
+    readings = {}
+
+    def steps_for(cfg, d=D):
+        return {impl: make_train_step(G, d, lpips, cfg, device="cuda", impl=impl)
+                for impl in ("cuda", "plain")}
+
+    # 5. two rounds of 6, both regularizers
+    cfg2 = TrainConfig(**TRAIN_CONFIG, grad_accum_rounds=ACCUM_ROUNDS)
+    steps2 = steps_for(cfg2)
+    batch12 = steps2["cuda"].phases["to_device"](
+        synthetic_batch(ACCUM_MB, res, zdim, G.mapping.label_size))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    draws2 = draw_train_step(G, ACCUM_MB, gen, cfg2)
+    expected2 = {name: {k: ACCUM_ROUNDS * v for k, v in c.items()}
+                 for name, c in per_phase.items()}
+    _, readings["accum_worst"] = compare_paths(torch, ck, steps2, batch12, draws2, state0,
+                                               expected2, f"{ACCUM_ROUNDS} rounds of "
+                                               f"{ACCUM_MB // ACCUM_ROUNDS}", failures)
+    # R1 at two rounds against one round of 12: per-sample independent only
+    # with the minibatch stddev off (its groups are strided over the batch,
+    # so a split regroups them), as tests/test_train_step.py holds it: a
+    # fresh config-e resnet D at full width with group 1, which has no
+    # stddev channel, so not the snapshot's
+    from inclusivegan_torch.models.stylegan2 import Discriminator
+    d1 = Discriminator(resolution=res, num_channels=3, fmap_base=8 << 10,
+                       architecture="resnet", mbstd_group_size=1).to("cuda")
+    d1.init(torch.Generator("cuda").manual_seed(3))
+    st = create_train_state(G, d1, Gs)
+    grads = {}
+    with deterministic(torch):
+        for rounds in (1, ACCUM_ROUNDS):
+            step = make_train_step(G, d1, lpips,
+                                   TrainConfig(**TRAIN_CONFIG, grad_accum_rounds=rounds),
+                                   device="cuda", impl="cuda")
+            out, _ = step.phases["d_reg_step"](copy.deepcopy(st), batch12, draws2["d_reg"],
+                                               LRATE)
+            grads[rounds] = out.d_opt.m
+    worst = max((rel_l2(torch, grads[ACCUM_ROUNDS][k], grads[1][k]), k) for k in grads[1])
+    readings["r1_rounds"] = worst[0]
+    log(f"R1 with the minibatch stddev off, {ACCUM_ROUNDS} rounds of 6 against 1 round "
+        f"of 12: largest relative L2 difference of a gradient {worst[0]:.3e} ({worst[1]}; "
+        f"limit {TRAIN_GRAD_REL_L2:g})")
+    if not worst[0] <= TRAIN_GRAD_REL_L2:
+        failures.append("R1 at two rounds differs from one round")
+    del d1, st, grads
+
+    # 6. invariant_rng: the draws of 12 at offset 0 are those of 6 at 0 and 6
+    # at 6; then one iteration from them, kernel path against plain path
+    cfgi = TrainConfig(**TRAIN_CONFIG, invariant_rng=True)
+    stepsi = steps_for(cfgi)
+
+    def inv_draws(mb, offset):
+        return draw_train_step(G, mb, torch.Generator().manual_seed(5), cfgi,
+                               example_offset=offset, device="cuda")
+    whole = inv_draws(ACCUM_MB, 0)
+    a, b = (flatten_draws(inv_draws(ACCUM_MB // 2, o)) for o in (0, ACCUM_MB // 2))
+    mismatched = []
+    for k, w in flatten_draws(whole).items():
+        if w.ndim == 0:
+            want = a[k]
+            if not (torch.equal(a[k], b[k]) and torch.equal(w, want)):
+                mismatched.append(k)
+            continue
+        if k.startswith("g/noise/"):
+            want = torch.cat([torch.cat([x.reshape(4, -1, *x.shape[1:])[f]
+                                         for x in (a[k], b[k])]) for f in range(4)])
+        else:
+            want = torch.cat([a[k], b[k]])
+        if not (w.is_cuda and torch.equal(w, want)):
+            mismatched.append(k)
+    log(f"invariant_rng draws on the card: {len(flatten_draws(whole))} leaves of a batch "
+        f"of {ACCUM_MB} at offset 0 against offsets 0 and {ACCUM_MB // 2}: "
+        f"{len(mismatched)} differ {mismatched[:4]}")
+    if mismatched:
+        failures.append("invariant draws do not concatenate across offsets")
+    _, readings["invariant_worst"] = compare_paths(
+        torch, ck, stepsi, batch12, whole, state0, per_phase,
+        f"invariant_rng, minibatch {ACCUM_MB}", failures)
+
+    # seconds per iteration, in turns
+    mb = ACCUM_MB // ACCUM_ROUNDS
+    batch6 = steps2["cuda"].phases["to_device"](
+        synthetic_batch(mb, res, zdim, G.mapping.label_size))
+    step1 = make_train_step(G, D, lpips, TrainConfig(**TRAIN_CONFIG), device="cuda")
+    secs = seconds_per_iteration(torch, {
+        f"1 round of {mb}": (step1, copy.deepcopy(state0), batch6, gen),
+        f"{ACCUM_ROUNDS} rounds of {mb}": (steps2["cuda"], copy.deepcopy(state0), batch12,
+                                           gen),
+        f"invariant_rng, minibatch {mb}": (stepsi["cuda"], copy.deepcopy(state0), batch6,
+                                           torch.Generator().manual_seed(3))})
+    for name, s in secs.items():
+        log(f"one iteration with both regularizers, {name}: {s:.4f} s (median of 3, host "
+            f"clock)")
+    # the lazy iterations, most of a run (G's regularizer every 4th, D's
+    # every 16th): invariant_rng draws nothing for the phases they skip
+    secs_lazy = seconds_per_iteration(torch, {
+        f"1 round of {mb}": (step1, copy.deepcopy(state0), batch6, gen),
+        f"invariant_rng, minibatch {mb}": (stepsi["cuda"], copy.deepcopy(state0), batch6,
+                                           torch.Generator().manual_seed(3))}, regs=False)
+    for name, s in secs_lazy.items():
+        log(f"one iteration without the regularizers, {name}: {s:.4f} s (median of 3, "
+            f"host clock)")
+    readings["secs"], readings["secs_without_regularizers"] = secs, secs_lazy
+    return readings
+
+
+def check_loop_run(run_dir, what, failures):
+    """Phase 12's checks of a run dir: finite loss scalars and its files."""
+    stats = read_stats(os.path.join(run_dir, "stats.jsonl"))
+    losses = {k: v for rec in stats for k, v in rec.items() if k.startswith("Loss/")}
+    missing = [n for n in ("network-final.pkl", "arb-reals.png", "log.txt", "_finished.txt")
+               if not os.path.isfile(os.path.join(run_dir, n))]
+    log(f"{what}: " + ", ".join(f"{k[5:]} {v:.5g}" for k, v in sorted(losses.items()))
+        + (f"; missing {missing}" if missing else "; run-dir files present"))
+    if len(losses) != 11 or not all(math.isfinite(v) for v in losses.values()) or missing:
+        failures.append(f"{what}: bad losses or missing files")
+
+
+def loop_and_datakit(np, torch, ck, G, D, tmp, failures):
+    """Phase 15, steps 7 and 8: phase 12's dataset written again (the
+    writer's ms per image, every record's CRC32C against the pure-Python
+    one), then the CLI with --knn-backend dci and with --invariant-rng true,
+    and an accumulated submit_run. Returns the launch counts of the DCI
+    run, this slice's main path."""
+    from inclusivegan_torch.data import datakit, tfrecord
+    data_dir = os.path.join(tmp, "data")
+    t = time.perf_counter()
+    files = write_loop_dataset(np, data_dir, 128)
+    write_s = time.perf_counter() - t
+    log(f"the TFRecord writer with datakit: {DATA_SIZE} images at 128 px in {write_s:.3f} s, "
+        f"{1e3 * write_s / DATA_SIZE:.2f} ms per image ({len(files)} files)")
+    n_rec, bad, py_s, native_s = 0, 0, 0.0, 0.0
+    for name in files:
+        path = os.path.join(data_dir, LOOP_DATASET, name)
+        if not name.endswith(".tfrecords"):
+            continue
+        # verify_crc checks both CRCs of every record through datakit
+        for payload in tfrecord.read_records(path, verify_crc=True):
+            t = time.perf_counter()
+            native = datakit.crc32c(payload)
+            native_s += time.perf_counter() - t
+            t = time.perf_counter()
+            bad += native != tfrecord._crc32c_py(payload)
+            py_s += time.perf_counter() - t
+            n_rec += 1
+    nbytes = sum(os.path.getsize(os.path.join(data_dir, LOOP_DATASET, f)) for f in files)
+    log(f"datakit CRC32C of {n_rec} records against the pure-Python CRC: {bad} differ; "
+        f"{nbytes / 1e6 / native_s:.1f} MB/s native, {nbytes / 1e6 / py_s:.2f} MB/s "
+        f"pure Python (the records' payloads, {nbytes / 1e6:.1f} MB of files)")
+    if bad or n_rec == 0:
+        failures.append("datakit's CRC32C disagrees with the pure-Python CRC")
+
+    per_phase = expected_launches(G, D)
+    iters = CLI_ITERS
+
+    def loop_expected(rounds, data_size):
+        """Launches of ``iters`` loop iterations from scratch (the lazy
+        regularizers at iteration 0) and the rebuild of its candidates."""
+        g_regs = len(range(0, iters, TRAIN_CONFIG["G_reg_interval"]))
+        d_regs = len(range(0, iters, TRAIN_CONFIG["D_reg_interval"]))
+        batches = math.ceil(data_size * IMLE_CONFIG["num_samples_factor"]
+                            / IMLE_CONFIG["candidate_batch_size"])
+        fwd = forward_launches(G, batches)
+        return {k: rounds * (iters * (per_phase["g_main"][k] + per_phase["d_main"][k])
+                             + g_regs * per_phase["g_reg"][k]
+                             + d_regs * per_phase["d_reg"][k]) + fwd.get(k, 0)
+                for k in KERNELS}
+
+    expected = loop_expected(1, DATA_SIZE)
+    runs = {}
+    for label, flags in (("dci", ["--knn-backend", "dci"]),
+                         ("invariant_rng", ["--invariant-rng", "true"])):
+        root = os.path.join(tmp, label)
+        argv = (["--data-dir", data_dir, "--dataset", LOOP_DATASET, "--result-dir", root]
+                + CLI_FLAGS + ["--smoke-test-max-iters", str(iters)] + flags)
+        _, launches, secs, _ = run_in_process(torch, ck, "inclusivegan_torch.run_training",
+                                              argv)
+        run_dir, lines = read_run_log(root)
+        check_loop_run(run_dir, f"run_training {' '.join(flags)}, {iters} iterations, "
+                       f"{secs:.1f} s", failures)
+        check_launches(f"run_training {' '.join(flags)}", launches, expected, failures)
+        marker = "DCI retrieval done" if label == "dci" else "Exact retrieval done"
+        if not any(marker in line for line in lines):
+            failures.append(f"the {label} run's log has no '{marker}'")
+        runs[label] = launches
+
+    sc, fn, kw = loop_kwargs(data_dir, os.path.join(tmp, "accum"),
+                             ["--data-size", str(ACCUM_DATA_SIZE)])
+    kw = dict(kw, smoke_test_max_iters=iters,
+              sched_args=dict(kw["sched_args"], minibatch_size_base=ACCUM_MB,
+                              minibatch_gpu_base=ACCUM_MB // ACCUM_ROUNDS))
+    t = time.time()
+    _state, run_dir, launches, _steps, _from, _recs = run_loop(torch, ck, sc, fn, kw)
+    del _state, _recs
+    line = f"gradient accumulation: {ACCUM_ROUNDS} rounds of {ACCUM_MB // ACCUM_ROUNDS}/device"
+    printed = line in open(os.path.join(run_dir, "log.txt")).read()
+    check_loop_run(run_dir, f"submit_run, minibatch {ACCUM_MB} over "
+                   f"{ACCUM_MB // ACCUM_ROUNDS} per device, {iters} iterations, "
+                   f"{time.time() - t:.1f} s, '{line}' printed {printed}", failures)
+    want = loop_expected(ACCUM_ROUNDS, ACCUM_DATA_SIZE)
+    check_launches("the accumulated submit_run", launches, want, failures)
+    if not printed:
+        failures.append("the accumulated run did not print its rounds")
+    runs["accumulated"] = launches
+    return runs, dict(write_ms=1e3 * write_s / DATA_SIZE, native_mb_s=nbytes / 1e6 / native_s,
+                      py_mb_s=nbytes / 1e6 / py_s)
+
+
+def retrieval_phase(np, torch, ck, reals_dir):
+    """Phase 15. Returns the launch counts of each of its paths; the DCI
+    CLI run is this slice's main path."""
+    from pathlib import Path
+    from inclusivegan_torch.dci import build as dci_build
+    from inclusivegan_torch.data import datakit
+    from inclusivegan_torch.models.lpips import load_lpips_params
+    from inclusivegan_torch.snapshot import load_networks
+
+    phase("15 host DCI, knn_backend routing, gradient accumulation, invariant_rng, "
+          "datakit")
+    t_phase = time.time()
+    failures = []
+    # each library built afresh in a temporary root, to time g++; then
+    # into build/ as the port builds it (at once when cached)
+    for name, sources, headers, flags in (
+            ("dci", [dci_build.CSRC / f for f in dci_build.DCI_SOURCES],
+             [dci_build.CSRC / f for f in dci_build.DCI_HEADERS], dci_build.DCI_FLAGS),
+            ("datakit", [datakit.SOURCE], [], datakit.FLAGS)):
+        with tempfile.TemporaryDirectory() as root, \
+                mock.patch.object(dci_build, "BUILD_ROOT", Path(root)):
+            t = time.perf_counter()
+            dci_build.build_library(name, sources, headers, flags)
+            log(f"lib{name} built (g++ {' '.join(flags)}) in "
+                f"{time.perf_counter() - t:.2f} s")
+    dci_build.build_dci_lib()
+    datakit.get_lib()
+    dci_readings = dci_alone(np, torch, failures)
+
+    G, D, Gs = load_networks(NETWORK, device="cuda")
+    for net in (G, D, Gs):
+        net.float()
+    rebuild_launches, rebuild_readings = dci_rebuild(np, torch, ck, G, reals_dir, failures)
+    torch.cuda.empty_cache()
+    dci_routing(np, torch, failures)
+    lpips = load_lpips_params(LPIPS_WEIGHTS, device="cuda")
+    step_readings = accumulation_and_invariant(np, torch, ck, G, D, Gs, lpips, failures)
+    del Gs, lpips
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dci_")
+    try:
+        loop_launches, kit = loop_and_datakit(np, torch, ck, G, D, tmp, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del G, D
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.time() - t_phase
+    log(f"phase 15 took {secs:.1f} s (budget {DCI_BUDGET_S} s)")
+    log("phase 15 readings: " + json.dumps(dict(dci=dci_readings, rebuild=rebuild_readings,
+                                                steps=step_readings, datakit=kit,
+                                                seconds=secs)))
+    if failures:
+        raise RuntimeError("phase 15: " + "; ".join(failures))
+    if secs >= DCI_BUDGET_S:
+        raise RuntimeError(f"phase 15 took {secs:.1f} s, over its {DCI_BUDGET_S} s budget")
+    return dict(loop_launches, dci_rebuild=rebuild_launches)
+
+
 def main() -> int:
     import atexit
     import numpy as np
@@ -2534,6 +3156,14 @@ def main() -> int:
         r.update(eval_records[r["name"]])
         r["launches"] = eval_launches["run_projector"][r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"], eval_errs[r["name"]])
+    gc.collect()
+    retrieval_launches = retrieval_phase(np, torch, ck, eval_data.data_dir)
+    for r in records:
+        # the top-level launches and timings stay the projector's (phase 14),
+        # one path at one shape; phase 15's paths, the DCI run among them,
+        # are under launches_by_path
+        r["launches_by_path"].update({f"retrieval {path}": counts[r["name"]]
+                                      for path, counts in retrieval_launches.items()})
     log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)

@@ -4,8 +4,10 @@
 Datasets are one ``<name>-r{log2res:02d}.tfrecords`` per resolution, with
 Examples holding int64 'shape' and raw uint8 'data'; the format is
 bit-compatible with TensorFlow's, so either side reads the other's datasets.
-The CRC is the pure-Python table here (the JAX package's native library is
-not carried over); records are read without checking it unless asked.
+The CRC is computed by the native slice-by-8 library (``datakit.py``, built
+with ``g++`` at first use), as in the JAX package; the pure-Python table
+(``_crc32c_py``) is the plain version the tests hold it to. Records are read
+without checking the CRC unless asked.
 
 Format refresher (implemented below):
   record  := len:uint64le  crc32c(len)  payload  crc32c(payload)
@@ -18,6 +20,8 @@ import struct
 from typing import Dict, Iterator, List, Tuple, Union
 
 import numpy as np
+
+from . import datakit
 
 # ---------------------------------------------------------------------------
 # CRC32C (Castagnoli), table-driven.
@@ -41,6 +45,12 @@ def _crc_table():
 
 
 def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C through the native library."""
+    return datakit.crc32c(data, crc)
+
+
+def _crc32c_py(data: bytes, crc: int = 0) -> int:
+    """Pure-Python CRC32C: the plain version of ``crc32c``."""
     table = _crc_table()
     crc = crc ^ 0xFFFFFFFF
     for b in data:

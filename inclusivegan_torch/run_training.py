@@ -11,11 +11,12 @@ package does; the IMLE retrieval relies on it. ``--dtype bfloat16`` computes
 G, D and the LPIPS trunk in bfloat16 from a fresh init (the JAX package's
 float32 islands kept). ``--metrics`` takes the registry's names (default
 ``none``) and runs them at every network snapshot; an unknown name raises
-before the run starts. ``--invariant-rng true``, ``--knn-backend dci`` and
-``--num-gpus`` over 1 raise ``NotImplementedError`` before the run starts
-(each names its ``ROADMAP.md`` item; an ``auto``
-backend over the exact budget, and a minibatch that needs gradient
-accumulation, are refused by the loop before it builds the networks).
+before the run starts. ``--knn-backend`` picks the IMLE retrieval (exact on
+the card, the host DCI index, or ``auto``: exact while the candidate
+features fit its budget); ``--invariant-rng true`` keys every random draw
+by the global example index. ``--num-gpus`` over 1 raises
+``NotImplementedError`` before the run starts (``ROADMAP.md`` queue 1 item
+6).
 
 The CelebA production run (``scripts/run_celeba_quality_loop.sh``):
 
@@ -45,13 +46,7 @@ _valid_configs = [
 ]
 
 
-def _refuse_unported(num_devices, invariant_rng, knn_backend):
-    if invariant_rng:
-        raise NotImplementedError("--invariant-rng is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 4)")
-    if knn_backend == "dci":
-        raise NotImplementedError("--knn-backend dci is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 5)")
+def _refuse_unported(num_devices):
     if num_devices > 1:
         raise NotImplementedError(f"--num-gpus {num_devices}: training on more than "
                                   "one card is not ported yet (ROADMAP.md, queue 1 "
@@ -69,7 +64,7 @@ def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
         network_snapshot_ticks=None, invariant_rng=False,
         enable_profiler=False, g_loss_batched=None, lpips_norm=None,
         seed=None, device="cuda"):
-    _refuse_unported(num_devices, invariant_rng, knn_backend)
+    _refuse_unported(num_devices)
     metrics = metric_args(metrics)
     train = EasyDict()
     G = EasyDict(init_mul=init_mul)
@@ -112,6 +107,8 @@ def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
                  dist_thres_percentile=dist_thres_percentile,
                  attr_interesting=attr_interesting,
                  knn_backend=knn_backend)
+    if invariant_rng:
+        train.invariant_rng = True
     if enable_profiler:
         train.enable_profiler = True
     if smoke_test_max_iters:
@@ -224,9 +221,10 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--knn-perturb-factor", default=0.05, type=float)
     parser.add_argument("--knn-backend", default="auto",
                         choices=("auto", "exact", "dci"),
-                        help="IMLE retrieval: exact kNN on the card (auto "
-                             "takes it while the candidate features fit its "
-                             "budget); dci is not ported yet")
+                        help="IMLE retrieval: exact kNN on the card, or the "
+                             "host DCI index (dci); auto takes exact while the "
+                             "candidate features fit its 4 GiB budget, dci "
+                             "beyond it")
     parser.add_argument("--candidate-batch-size", metavar="N", default=256,
                         type=int)
     parser.add_argument("--exclusive-retrieved-code", metavar="N", default=0,
@@ -245,7 +243,10 @@ def parse_args(argv=None) -> dict:
                         help="training_loop seed (numpy and every torch "
                              "generator; default 1000)")
     parser.add_argument("--invariant-rng", default=False, metavar="BOOL",
-                        type=_str_to_bool, help="not ported yet")
+                        type=_str_to_bool,
+                        help="key every random draw of the step by the global "
+                             "example index (the same trajectory on any number "
+                             "of cards)")
     parser.add_argument("--lpips-weights", default=None, type=str,
                         help="LPIPS npz for the rec anchor; default: "
                              "metrics_weights/vgg16_zhang_perceptual.npz if "

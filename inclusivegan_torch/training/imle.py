@@ -1,6 +1,6 @@
-"""IMLE orchestration: candidate pool, exact nearest-neighbour retrieval and
-the per-iteration rec batches, ported from
-``inclusivegan_tpu/training/imle.py`` (the exact backend).
+"""IMLE orchestration: candidate pool, nearest-neighbour retrieval (exact on
+the card, or through the host DCI index) and the per-iteration rec batches,
+ported from ``inclusivegan_tpu/training/imle.py``.
 
 A fixed pool of ``data_size * num_samples_factor`` candidate latents is drawn
 once from a seed. A rebuild, due at the staleness boundary (the staleness
@@ -18,6 +18,15 @@ for ``Precision.HIGHEST``); TF32 would reorder neighbours, so the caller
 keeps ``torch.backends.cuda.matmul.allow_tf32`` off. Host-side randomness is
 numpy's PCG64, seeded as in the JAX package, so both draw the same pool, the
 same perturbations and the same shuffles.
+
+The ``dci`` backend keeps the candidate features on the host in float64 and
+builds the Prioritized DCI index (``dci/``) over them. The features, and
+their projections onto the index's directions, are float32 matrix products
+on the card; the host sorts the tables and walks them. ``auto`` takes the
+exact backend while the candidate features fit its budget and DCI beyond
+it, as the JAX package routes, since the two backends may retrieve
+different neighbours; DCI is gated by the host memory its float64 features
+take and by its projected construction time.
 """
 
 import math
@@ -27,11 +36,37 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dci import DCI
 from ..utils.misc import adjust_dynamic_range, slerp_np
 
 _KNN_CAND_CHUNK = 65536
 _KNN_QUERY_CHUNK = 8192
-_EXACT_KNN_MEMORY_BUDGET = 4 << 30  # candidate-feature bytes on the device
+# The routing rule between the backends, the JAX package's, so that every
+# configuration retrieves with the same backend in both packages: exact
+# while the candidate features take at most 4 GiB in float32, DCI beyond,
+# while they take at most 32 GiB in float64 on the host.
+_EXACT_KNN_MEMORY_BUDGET = 4 << 30
+_DCI_HOST_MEM_BUDGET = 32 << 30
+
+# Host-DCI construction time, t = COEF * n**EXP seconds with all the host's
+# cores (the production index: dim 512, 3 x 15 directions, 2 levels),
+# fitted by chip_smoke.py phase 15 at n = 8192 ... 131072 on the host of an
+# NVIDIA H100 80GB HBM3 (700.00 W power limit), os.cpu_count() = 8. It
+# routes ``auto`` and makes an explicit ``dci`` warn, instead of stalling
+# training for a time nobody predicted.
+_DCI_BUILD_COEF = 1.98e-5
+_DCI_BUILD_EXP = 1.05
+_DCI_BUILD_FIT_CORES = 8
+_DCI_BUILD_BUDGET_S = 900.0
+
+
+def estimate_dci_build_seconds(n: int) -> float:
+    """Projected host-DCI construction seconds for an n-point pool on this
+    host: the fit, scaled from its host's cores to this one's with the JAX
+    package's 70% parallel share (the assignment loop is OpenMP)."""
+    cores = max(os.cpu_count() or 1, 1)
+    return (_DCI_BUILD_COEF * float(n) ** _DCI_BUILD_EXP
+            * (0.3 + 0.7 * _DCI_BUILD_FIT_CORES) / (0.3 + 0.7 * cores))
 
 
 def _knn_topk(qfeats, cand, k: int, chunk: int = _KNN_CAND_CHUNK):
@@ -70,6 +105,59 @@ def _featurize(x, projector, drange_in=None, drange_out=None):
     return flat if projector is None else flat @ projector
 
 
+class _Lookahead:
+    """Copies batches from the card into host float64 arrays with one batch
+    of look-ahead: each batch's copy is queued behind its work and waited
+    for only after the next batch is dispatched, so that the card renders
+    batch i+1 while the host converts batch i (pinned buffers, CUDA's
+    asynchronous launch)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.pinned = dev.type == "cuda"
+        self.pending = None
+
+    def put(self, tensors, outs, at: int):
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.pinned)
+            h.copy_(t, non_blocking=self.pinned)
+            hosts.append(h)
+        landed = None
+        if self.pinned:
+            landed = torch.cuda.Event()
+            landed.record(torch.cuda.current_stream(self.dev))
+        self.drain()
+        self.pending = (hosts, outs, at, landed)
+
+    def drain(self):
+        if self.pending is None:
+            return
+        hosts, outs, at, landed = self.pending
+        self.pending = None
+        if landed is not None:
+            landed.synchronize()
+        for h, out in zip(hosts, outs):
+            out[at:at + h.shape[0]] = h.numpy()
+
+
+def _first_unused(ids, dists):
+    """Exclusive retrieval: each query, in order, takes the first of its
+    neighbours that no earlier query took (its nearest if all were)."""
+    used = set()
+    sel_ids, sel_dists = [], []
+    for row_ids, row_dists in zip(ids, dists):
+        pick = 0
+        for j, cand in enumerate(row_ids):
+            if cand not in used:
+                pick = j
+                break
+        used.add(row_ids[pick])
+        sel_ids.append(row_ids[pick])
+        sel_dists.append(row_dists[pick])
+    return np.array(sel_ids), np.array(sel_dists)
+
+
 def func_proj_dim(init_proj_dim: Optional[int], data_size: int,
                   num_samples_factor: int, image_dim: int) -> int:
     """Projection dimension: None -> the raw image dimension; 0 -> the
@@ -96,22 +184,6 @@ def load_or_create_projector(image_dim: int, proj_dim: int,
     return projector
 
 
-def check_knn_backend(knn_backend: str, num_candidates: int, proj_dim: int) -> None:
-    """Raise unless the exact backend serves ``knn_backend``: 'dci', and
-    'auto' with candidate features over the exact backend's budget, need the
-    host DCI index, which is not ported yet."""
-    if knn_backend not in ("auto", "exact", "dci"):
-        raise ValueError(f"unknown knn_backend {knn_backend!r}")
-    if knn_backend == "dci" or (
-            knn_backend == "auto"
-            and num_candidates * proj_dim * 4 > _EXACT_KNN_MEMORY_BUDGET):
-        raise NotImplementedError(
-            "knn_backend='dci' (the host DCI index) is not ported yet: it "
-            "comes in a later slice (ROADMAP.md, queue 1 item 5); the exact "
-            "backend takes candidate "
-            f"features up to {_EXACT_KNN_MEMORY_BUDGET >> 30} GiB")
-
-
 class IMLEOrchestrator:
     """Owns the candidate pool, the retrieved latents and the rec cursor."""
 
@@ -123,14 +195,17 @@ class IMLEOrchestrator:
                  exclusive_retrieved_code: bool = False,
                  dist_thres_percentile: float = 100.0,
                  attr_interesting: Optional[str] = None,
-                 attr_names: Optional[list] = None, seed: int = 0,
+                 attr_names: Optional[list] = None,
+                 num_comp_indices: int = 3, num_simp_indices: int = 15,
+                 num_levels: int = 2, seed: int = 0,
                  drange_data=(0, 255), drange_net=(-1, 1),
-                 projector_cache_dir: str = ".", knn_backend: str = "exact",
+                 projector_cache_dir: str = ".", knn_backend: str = "auto",
                  device="cuda"):
+        if knn_backend not in ("auto", "exact", "dci"):
+            raise ValueError(f"unknown knn_backend {knn_backend!r}")
         n = data_size * num_samples_factor
         self.proj_dim = func_proj_dim(init_proj_dim, data_size, num_samples_factor,
                                       image_dim)
-        check_knn_backend(knn_backend, n, self.proj_dim)
         self.data_size = data_size
         self.num_samples_factor = num_samples_factor
         self.latent_size = latent_size
@@ -146,6 +221,7 @@ class IMLEOrchestrator:
         self.drange_data = tuple(drange_data)
         self.drange_net = tuple(drange_net)
         self.knn_backend = knn_backend
+        self.num_levels = num_levels
         self.device = torch.device(device)
 
         self.projector = None
@@ -155,6 +231,10 @@ class IMLEOrchestrator:
         rnd = np.random.Generator(np.random.PCG64(seed))
         self.latent_candidates = rnd.standard_normal((n, latent_size),
                                                      dtype=np.float32)
+        # the index is made at the first DCI rebuild, which draws its
+        # directions anew (reset) from _rng, as the JAX package does
+        self._dci_args = (self.proj_dim, num_comp_indices, num_simp_indices, seed)
+        self.dci: Optional[DCI] = None
         self.selected_latents: Optional[np.ndarray] = None
         self.selected_dists: Optional[np.ndarray] = None
         self.dist_thres = np.inf
@@ -181,18 +261,64 @@ class IMLEOrchestrator:
         array). ``generate_features`` is accepted for the JAX package's
         signature and not used: that package fuses the projector into its
         generator call to spare the device-to-host link, while here the
-        images stay on the card and are projected there."""
+        images stay on the card and are projected there.
+
+        The backend: ``exact``, ``dci``, or ``auto``, which takes exact
+        while the candidates' float32 features fit its budget. DCI raises
+        when its float64 features would pass the host budget; beyond its
+        time budget an explicit ``dci`` warns and runs, and ``auto``
+        raises."""
         del generate_features
         if self.selected_latents is not None:
             self.staleness *= 2
-        self._rebuild_exact(generate_images, rec_dataset, verbose)
+        n = self.data_size * self.num_samples_factor
+        if self.knn_backend == "exact" or (
+                self.knn_backend == "auto"
+                and n * self.proj_dim * 4 <= _EXACT_KNN_MEMORY_BUDGET):
+            self._rebuild_exact(generate_images, rec_dataset, verbose)
+            return
+        self._check_dci_budgets(n)
+        self._rebuild_dci(generate_images, rec_dataset, verbose)
+
+    def _check_dci_budgets(self, n: int) -> None:
+        host_bytes = n * self.proj_dim * 8
+        if host_bytes > _DCI_HOST_MEM_BUDGET:
+            raise RuntimeError(
+                f"host-DCI candidate features ({n:,} x {self.proj_dim} f64 = "
+                f"{host_bytes / 2**30:.0f} GiB) exceed the "
+                f"{_DCI_HOST_MEM_BUDGET >> 30} GiB host budget. Set init_proj_dim "
+                f"(e.g. 512, or 0 for the Johnson-Lindenstrauss estimate) so that "
+                f"the features are projected before retrieval.")
+        est = estimate_dci_build_seconds(n)
+        if est <= _DCI_BUILD_BUDGET_S:
+            return
+        if self.knn_backend == "dci":
+            print(f"WARNING: host-DCI index build for {n:,} candidates is projected "
+                  f"to take ~{est / 60:.0f} min on this host (fitted model, "
+                  f"imle.estimate_dci_build_seconds); training stalls for the "
+                  f"duration. Reduce init_proj_dim so that the exact backend fits "
+                  f"its {_EXACT_KNN_MEMORY_BUDGET >> 30} GiB budget if that is "
+                  f"unacceptable.", flush=True)
+            return
+        raise RuntimeError(
+            f"knn_backend='auto': candidate features ({n:,} x {self.proj_dim} f32 "
+            f"= {n * self.proj_dim * 4 / 2**30:.1f} GiB) exceed the "
+            f"{_EXACT_KNN_MEMORY_BUDGET >> 30} GiB exact-backend budget, and the "
+            f"host-DCI fallback is projected at ~{est / 60:.0f} min per rebuild on "
+            f"this host. Either reduce init_proj_dim (smaller features -> exact "
+            f"fits) or set knn_backend='dci' explicitly to accept the host build "
+            f"time.")
+
+    def _projector_dev(self):
+        if self.projector is None:
+            return None
+        return torch.as_tensor(self.projector, dtype=torch.float32, device=self.device)
 
     def _rebuild_exact(self, generate_images, rec_dataset, verbose):
         n = self.data_size * self.num_samples_factor
         bs = self.candidate_batch_size
         dev = self.device
-        projector = (torch.as_tensor(self.projector, dtype=torch.float32, device=dev)
-                     if self.projector is not None else None)
+        projector = self._projector_dev()
         feats = []
         for i in range(0, n, bs):
             if verbose and (i // bs) % 16 == 0:
@@ -216,29 +342,65 @@ class IMLEOrchestrator:
                                         self.drange_net), cand, k)
             ids[j:j + r.shape[0]] = i.cpu().numpy()
             dists[j:j + r.shape[0]] = d.double().cpu().numpy()
-
         if self.exclusive_retrieved_code:
-            used = set()
-            sel_ids, sel_dists = [], []
-            for row_ids, row_dists in zip(ids, dists):
-                pick = 0
-                for jj, cand_id in enumerate(row_ids):
-                    if cand_id not in used:
-                        pick = jj
-                        break
-                used.add(row_ids[pick])
-                sel_ids.append(row_ids[pick])
-                sel_dists.append(row_dists[pick])
-            nearest_ids = np.array(sel_ids)
-            nearest_dists = np.array(sel_dists)
+            nearest_ids, nearest_dists = _first_unused(ids, dists)
         else:
-            nearest_ids = ids[:, 0]
-            nearest_dists = dists[:, 0]
+            nearest_ids, nearest_dists = ids[:, 0], dists[:, 0]
+        self._select(nearest_ids, nearest_dists, "Exact", verbose)
+
+    def _rebuild_dci(self, generate_images, rec_dataset, verbose):
+        n = self.data_size * self.num_samples_factor
+        bs = self.candidate_batch_size
+        dev = self.device
+        projector = self._projector_dev()
+        if self.dci is None:
+            dim, ncomp, nsimp, seed = self._dci_args
+            self.dci = DCI(dim, ncomp, nsimp, seed=seed)
+        self.dci.reset(seed=int(self._rng.integers(2 ** 31)))
+        proj_vec = torch.as_tensor(self.dci.proj_vec.T, dtype=torch.float32, device=dev)
+        feats = np.empty((n, self.proj_dim), np.float64)
+        proj = np.empty((n, proj_vec.shape[1]), np.float64)
+        copies = _Lookahead(dev)
+        for i in range(0, n, bs):
+            if verbose and (i // bs) % 16 == 0:
+                print(f"\rCandidates sampling {i}/{n}...", end="", flush=True)
+            img = torch.as_tensor(generate_images(self.latent_candidates[i:i + bs]),
+                                  device=dev)
+            f = _featurize(img, projector)
+            copies.put((f, f @ proj_vec), (feats, proj), i)
+        copies.drain()
+        if verbose:
+            print("\rDCI constructing...                    ")
+        self.dci.add(feats, num_levels=self.num_levels, projections=proj)
+
+        reals = rec_dataset.get_all_images()[:self.data_size]
+        nq = reals.shape[0]
+        qfeats = np.empty((nq, self.proj_dim), np.float64)
+        qproj = np.empty((nq, proj_vec.shape[1]), np.float64)
+        for j in range(0, nq, _KNN_QUERY_CHUNK):
+            r = torch.tensor(reals[j:j + _KNN_QUERY_CHUNK], device=dev)  # a copy
+            f = _featurize(r, projector, self.drange_data, self.drange_net)
+            copies.put((f, f @ proj_vec), (qfeats, qproj), j)
+        copies.drain()
+        if self.exclusive_retrieved_code:
+            k = self.num_samples_factor
+            ids, dists = self.dci.query(qfeats, num_neighbours=k, field_of_view=200,
+                                        max_retrieve=max(1024, 32 * k),
+                                        projections=qproj)
+            nearest_ids, nearest_dists = _first_unused(ids, dists)
+        else:
+            ids, dists = self.dci.query(qfeats, num_neighbours=1, field_of_view=200,
+                                        projections=qproj)
+            nearest_ids = np.array([i[0] for i in ids])
+            nearest_dists = np.array([d[0] for d in dists])
+        self._select(nearest_ids, nearest_dists, "DCI", verbose)
+
+    def _select(self, nearest_ids, nearest_dists, backend: str, verbose: bool):
         self.selected_latents = self.latent_candidates[nearest_ids]
         self.selected_dists = nearest_dists
         self.dist_thres = np.percentile(nearest_dists, self.dist_thres_percentile)
         if verbose:
-            print(f"Exact retrieval done: mean 1-NN dist "
+            print(f"{backend} retrieval done: mean 1-NN dist "
                   f"{nearest_dists.mean():.4f}, staleness now {self.staleness}")
 
     def _row_filter(self, labels: np.ndarray, dists: np.ndarray) -> np.ndarray:

@@ -9,7 +9,9 @@ D call where minibatch-stddev groups allow. ``d_r1_reg``: the R1 penalty.
 
 Every random draw is an argument (``draws``), made by the ``draw_*``
 functions from a ``torch.Generator`` or handed in by a test with the JAX
-package's draws. Losses are per-sample; the train step takes their mean.
+package's draws. Under ``invariant_rng`` the ``draw_*_invariant``
+functions make the same draws per example from its global index
+(``ExampleDraws``), so that they do not depend on how the batch is split. Losses are per-sample; the train step takes their mean.
 Second-order terms use ``torch.autograd.grad(..., create_graph=True)``, which
 reaches the kernels' own backward Functions.
 """
@@ -23,6 +25,75 @@ import torch.nn.functional as F
 from ..models.lpips import lpips_distance, lpips_distance_from_features, lpips_features
 
 Draws = Dict[str, object]
+
+# --- invariant_rng: per-example draws ---------------------------------------
+# The salts of the JAX package's invariant mode, numbered as there: t, the
+# path-length latents and image-space noise, and the parent of each G
+# forward's draws (+ the forward's id); under a forward, its style-mixing
+# latents2 (the JAX package's models/stylegan2.py _EK_MIX) and its synthesis
+# noise, every layer in one draw (the JAX package folds in each layer index).
+_EK_T = (1 << 20) | 1
+_EK_PL_Z = (1 << 20) | 2
+_EK_PL_NOISE = (1 << 20) | 3
+_EK_FWD_BASE = 1 << 21
+_EK_MIX = 1 << 20
+_EK_NOISE = 0
+
+
+class ExampleDraws:
+    """Random streams of one phase under ``invariant_rng``. The values of the
+    example with global index ``offset + i`` under a path of salts come
+    from numpy's PCG64 seeded by ``SeedSequence([seed, 1, len(path), *path,
+    offset + i])``: they depend on the phase seed, the salts and the index
+    alone, so that a global batch drawn whole equals its parts drawn at
+    their offsets, on any number of cards. ``scalar_rng`` gives the
+    batch-scalar draws (the style-mixing decision and cutoff), which depend
+    on the seed and the salts alone. Values are drawn on the host, one call
+    per example and salt."""
+
+    def __init__(self, seed: int, offset: int = 0, path: tuple = ()):
+        self.seed, self.offset, self.path = int(seed), int(offset), tuple(path)
+
+    def sub(self, *salts: int) -> "ExampleDraws":
+        return ExampleDraws(self.seed, self.offset, self.path + salts)
+
+    def _rngs(self, n: int):
+        head = [self.seed, 1, len(self.path), *self.path]
+        return [np.random.default_rng(head + [self.offset + i]) for i in range(n)]
+
+    def normal(self, n: int, shape=()) -> torch.Tensor:
+        return torch.from_numpy(np.stack(
+            [r.standard_normal(shape, dtype=np.float32) for r in self._rngs(n)]))
+
+    def uniform(self, n: int, shape=()) -> torch.Tensor:
+        return torch.from_numpy(np.stack(
+            [r.random(shape, dtype=np.float32) for r in self._rngs(n)]))
+
+    def scalar_rng(self) -> np.random.Generator:
+        return np.random.default_rng([self.seed, 2, len(self.path), *self.path])
+
+
+def _mixing_invariant(G, n: int, fwd: ExampleDraws, scalars: ExampleDraws):
+    """(latents2 per example, cutoff shared by the batch), the layout of
+    ``GMain.draw_mixing``; None without style mixing."""
+    if G.style_mixing_prob is None:
+        return None
+    num_layers = G.synthesis.num_layers
+    latents2 = fwd.sub(_EK_MIX).normal(n, (G.mapping.latent_size,))
+    rng = scalars.scalar_rng()
+    mix = rng.random() < G.style_mixing_prob
+    layer = int(rng.integers(1, num_layers))
+    return latents2, torch.tensor(layer if mix else num_layers, dtype=torch.int64)
+
+
+def _noise_invariant(G, n: int, fwd: ExampleDraws) -> Dict[str, torch.Tensor]:
+    """Each example's synthesis noise of every layer in one draw, split into
+    the [n, 1, h, w] images of ``GSynthesis.draw_noise``."""
+    shapes = G.synthesis.noise_shapes()
+    sizes = [int(np.prod(s)) for s in shapes.values()]
+    z = fwd.sub(_EK_NOISE).normal(n, (sum(sizes),))
+    return {k: part.reshape((n,) + s[1:])
+            for (k, s), part in zip(shapes.items(), torch.split(z, sizes, dim=1))}
 
 
 def _normalize(v, dim=-1):
@@ -64,6 +135,20 @@ def draw_g_main(G, n: int, generator: torch.Generator, batched: bool = True) -> 
     noise = ([G.synthesis.draw_noise(4 * n, generator)] if batched
              else [G.synthesis.draw_noise(n, generator) for _ in range(4)])
     return {"t": t, "mixing": mixing, "noise": noise}
+
+
+def draw_g_main_invariant(G, n: int, ex: ExampleDraws, scalars: ExampleDraws,
+                          batched: bool = True) -> Draws:
+    """``draw_g_main``'s draws per example (``ex``: the phase's example
+    streams) with the mixing decisions from ``scalars``."""
+    fwd = [ex.sub(_EK_FWD_BASE + fid) for fid in range(4)]
+    noise = [_noise_invariant(G, n, f) for f in fwd]
+    if batched:
+        noise = [{k: torch.cat([z[k] for z in noise]) for k in noise[0]}]
+    return {"t": ex.sub(_EK_T).uniform(n, (1,)),
+            "mixing": [_mixing_invariant(G, n, f, scalars.sub(fid))
+                       for fid, f in enumerate(fwd)],
+            "noise": noise}
 
 
 def g_main_loss(G, D, lpips_params, *, draws: Draws,
@@ -153,6 +238,17 @@ def draw_g_path_reg(G, minibatch_size: int, generator: torch.Generator,
             "noise": syn.draw_noise(pl_mb, generator)}
 
 
+def draw_g_path_reg_invariant(G, pl_mb: int, ex: ExampleDraws,
+                              scalars: ExampleDraws) -> Draws:
+    """``draw_g_path_reg``'s draws per path-length example."""
+    syn = G.synthesis
+    res = syn.resolution
+    return {"pl_latents": ex.sub(_EK_PL_Z).normal(pl_mb, (G.mapping.latent_size,)),
+            "mixing": _mixing_invariant(G, pl_mb, ex.sub(_EK_FWD_BASE), scalars),
+            "pl_noise": ex.sub(_EK_PL_NOISE).normal(pl_mb, (syn.num_channels, res, res)),
+            "noise": _noise_invariant(G, pl_mb, ex.sub(_EK_FWD_BASE + 1))}
+
+
 def g_path_reg(G, *, draws: Draws, pl_mean, label_size: int,
                pl_decay: float = 0.01, pl_weight: float = 2.0,
                impl: str = "cuda"):
@@ -181,6 +277,13 @@ def draw_d_main(G, n: int, generator: torch.Generator) -> Draws:
     """The draws of ``d_main_loss``'s G forward for n fakes."""
     return {"mixing": G.draw_mixing(n, generator),
             "noise": G.synthesis.draw_noise(n, generator)}
+
+
+def draw_d_main_invariant(G, n: int, ex: ExampleDraws, scalars: ExampleDraws) -> Draws:
+    """``draw_d_main``'s draws per example."""
+    fwd = ex.sub(_EK_FWD_BASE)
+    return {"mixing": _mixing_invariant(G, n, fwd, scalars),
+            "noise": _noise_invariant(G, n, fwd)}
 
 
 def d_main_loss(G, D, *, draws: Draws, reals, labels, arb_latents, arb_labels,

@@ -13,25 +13,38 @@ through the ``draw_*`` functions below and in ``loss.py``, unless the caller
 hands in the draws (``draws={"g": ..., "g_reg": ..., "d": ..., "d_reg":
 ...}``), as the tests do with the JAX package's. Mirror flips are uniform
 draws ``u``; an image is flipped where ``u >= 0.5``.
+
+Gradient accumulation (``grad_accum_rounds``, the reference optimizer's
+minibatch multiplier): each phase splits its batch-shaped inputs into
+``rounds`` microbatches, in order, and takes one gradient per microbatch;
+the gradients are summed in float32 and divided by ``rounds``, and Adam
+(with its non-finite skip) runs once, on the mean. Per-round scalars are
+averaged, the dlatent batch averages are folded in round order, and the
+path-length ``pl_mean`` threads through the rounds in sequence. The
+batch-shaped draws of a phase (flips, arb latents) are made for the whole
+batch and split; the draws inside the loss are made per round (under
+``"rounds"`` in the phase's draws). R1 draws nothing per round.
+
+``invariant_rng``: every batch-shaped draw comes from the example's global
+index (``loss.ExampleDraws``: four phase seeds from the generator, then
+per-example streams on the host, moved to the card in one copy), and
+batch-scalar draws are shared by the batch, so that a global batch computes
+the same on any number of cards. ``draw_train_step``'s ``example_offset``
+is the global index of this card's first example (0 on one card). As in the
+JAX package, it needs ``grad_accum_rounds == 1``.
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .loss import (d_main_loss, d_r1_reg, draw_d_main, draw_g_main,
-                   draw_g_path_reg, fold_dlatent_avg, g_main_loss, g_path_reg)
+from .loss import (ExampleDraws, d_main_loss, d_r1_reg, draw_d_main,
+                   draw_d_main_invariant, draw_g_main, draw_g_main_invariant,
+                   draw_g_path_reg, draw_g_path_reg_invariant, fold_dlatent_avg,
+                   g_main_loss, g_path_reg)
 from .optimizer import adam_apply, lazy_reg_hparams
 from .train_state import TrainState, assign, g_trainables, params_of, update_gs
 
-# Fields of the JAX TrainConfig that this port does not honour yet, with the
-# values that mean "off", and the work that brings them.
-_LATER = {
-    "invariant_rng": ((False,), "invariant_rng comes with gradient accumulation "
-                      "(ROADMAP.md, queue 1 item 4)"),
-    "grad_accum_rounds": ((1,), "gradient accumulation comes in a later slice "
-                          "(ROADMAP.md, queue 1 item 4)"),
-}
 # Fields of the JAX TrainConfig that mean nothing here and are accepted at
 # any value: the port updates the state in place already.
 _IGNORED = ("donate_state",)
@@ -54,25 +67,19 @@ class _Fields(NamedTuple):
     lpips_dtype: Any = None  # the LPIPS trunk's compute dtype; None: float32
     lpips_norm: Any = None  # "f32" (None) or "trunk": models.lpips.lpips_features
     g_loss_batched: bool = True
+    grad_accum_rounds: int = 1  # microbatches per phase, one Adam step
+    invariant_rng: bool = False  # draws keyed by the global example index
 
 
 class TrainConfig(_Fields):
-    """The hyperparameters of the step that this slice honours. The JAX
-    package's other fields (``invariant_rng``, ``grad_accum_rounds``) are
-    accepted at their neutral values and raise ``NotImplementedError``
-    otherwise; ``donate_state`` is accepted either way, since the port
-    updates the state in place."""
+    """The hyperparameters of the step, the JAX package's. Its
+    ``donate_state`` is accepted at any value, since the port updates the
+    state in place."""
     __slots__ = ()
 
     def __new__(cls, *args, **kwargs):
         for name in _IGNORED:
             kwargs.pop(name, None)
-        for name, (neutral, why) in _LATER.items():
-            if name in kwargs:
-                value = kwargs.pop(name)
-                if not any(value is v or value == v for v in neutral):
-                    raise NotImplementedError(
-                        f"TrainConfig.{name}={value!r} is not ported: {why}")
         return super().__new__(cls, *args, **kwargs)
 
 
@@ -93,24 +100,132 @@ def _uniform(n, generator):
 
 def draw_train_step(G, minibatch_size: int, generator: torch.Generator,
                     cfg: TrainConfig, *, do_g_reg: bool = True,
-                    do_d_reg: bool = True) -> Dict[str, Dict[str, Any]]:
-    """Every draw of one iteration, phase by phase, from ``generator``."""
+                    do_d_reg: bool = True, example_offset: int = 0,
+                    device=None) -> Dict[str, Dict[str, Any]]:
+    """Every draw of one iteration, phase by phase, from ``generator``. With
+    ``grad_accum_rounds`` over 1, each phase's loss draws are a list under
+    ``"rounds"``. Under ``invariant_rng`` the draws are made on the host
+    and moved to ``device`` (default: the generator's) in one copy."""
+    if cfg.invariant_rng:
+        return _draw_invariant(G, minibatch_size, generator, cfg, example_offset,
+                               device or generator.device, do_g_reg, do_d_reg)
     mb = minibatch_size
+    rounds = cfg.grad_accum_rounds
+    z = G.mapping.latent_size
+
+    def per_round(draw, n):
+        if rounds == 1:
+            return draw(n)
+        return {"rounds": [draw(n // rounds) for _ in range(rounds)]}
+
     draws = {"g": {"flip1": _uniform(mb, generator), "flip2": _uniform(mb, generator),
-                   "arb_latents": torch.randn((mb, G.mapping.latent_size),
-                                              generator=generator,
+                   "arb_latents": torch.randn((mb, z), generator=generator,
                                               device=generator.device),
-                   **draw_g_main(G, mb, generator, cfg.g_loss_batched)}}
+                   **per_round(lambda n: draw_g_main(G, n, generator, cfg.g_loss_batched),
+                               mb)}}
     if do_g_reg:
-        draws["g_reg"] = draw_g_path_reg(G, mb, generator, cfg.pl_minibatch_shrink)
+        draws["g_reg"] = per_round(
+            lambda n: draw_g_path_reg(G, n, generator, cfg.pl_minibatch_shrink), mb)
     draws["d"] = {"flip": _uniform(2 * mb, generator),
-                  "arb_latents": torch.randn((2 * mb, G.mapping.latent_size),
-                                             generator=generator,
+                  "arb_latents": torch.randn((2 * mb, z), generator=generator,
                                              device=generator.device),
-                  **draw_d_main(G, 2 * mb, generator)}
+                  **per_round(lambda n: draw_d_main(G, n, generator), 2 * mb)}
     if do_d_reg:
         draws["d_reg"] = {"flip": _uniform(2 * mb, generator)}
     return draws
+
+
+def _draw_invariant(G, mb: int, generator, cfg, example_offset: int, device,
+                    do_g_reg: bool, do_d_reg: bool):
+    """The draws of ``invariant_rng``: four phase seeds from ``generator``
+    (one read, which waits for the card if the generator is a CUDA one),
+    then per-example streams (``loss.ExampleDraws``), whose sub-streams
+    number as the JAX package splits each phase key. Path-length examples
+    are ``pl_minibatch_shrink`` times fewer, D's twice as many. The four
+    seeds are read whatever the flags, so a lazy phase that is skipped
+    leaves the other phases' draws as they are."""
+    seeds = torch.randint(0, 2 ** 62, (4,), generator=generator,
+                          device=generator.device).tolist()
+    z = G.mapping.latent_size
+    g = ExampleDraws(seeds[0], example_offset)
+    pl_mb = max(mb // cfg.pl_minibatch_shrink, 1)
+    gr = ExampleDraws(seeds[1], example_offset * pl_mb // mb)
+    d = ExampleDraws(seeds[2], 2 * example_offset)
+    draws = {"g": {"flip1": g.sub(0).uniform(mb), "flip2": g.sub(1).uniform(mb),
+                   "arb_latents": g.sub(3).normal(mb, (z,)),
+                   **draw_g_main_invariant(G, mb, g.sub(4), g.sub(2),
+                                           cfg.g_loss_batched)}}
+    if do_g_reg:
+        draws["g_reg"] = draw_g_path_reg_invariant(G, pl_mb, gr.sub(1), gr.sub(0))
+    draws["d"] = {"flip": d.sub(0).uniform(2 * mb),
+                  "arb_latents": d.sub(2).normal(2 * mb, (z,)),
+                  **draw_d_main_invariant(G, 2 * mb, d.sub(3), d.sub(1))}
+    if do_d_reg:
+        draws["d_reg"] = {"flip": ExampleDraws(seeds[3], 2 * example_offset).uniform(2 * mb)}
+    return _draws_to_device(draws, device)
+
+
+def _draws_to_device(draws, device):
+    """The draws on ``device``, in one host-to-device copy per dtype."""
+    device = torch.device(device)
+    flat = flatten_draws(draws)
+    out = {}
+    for dtype in {v.dtype for v in flat.values()}:
+        names = [k for k, v in flat.items() if v.dtype == dtype]
+        buf = torch.cat([flat[k].reshape(-1) for k in names])
+        if device.type == "cuda":
+            buf = buf.pin_memory()
+        buf = buf.to(device, non_blocking=True)
+        at = 0
+        for k in names:
+            n = flat[k].numel()
+            out[k] = buf[at:at + n].view(flat[k].shape)
+            at += n
+    return unflatten_draws(out, device)
+
+
+def _round_draws(draws, rounds: int):
+    """The loss draws of each round of a phase."""
+    return draws["rounds"] if rounds > 1 else [draws]
+
+
+def _split(tensors: Dict[str, Any], rounds: int):
+    """Batch-shaped inputs -> ``rounds`` microbatches, in order."""
+    n = next(iter(tensors.values())).shape[0]
+    if n % rounds:
+        raise ValueError(f"a batch of {n} does not split into {rounds} rounds")
+    m = n // rounds
+    return [{k: v[r * m:(r + 1) * m] for k, v in tensors.items()} for r in range(rounds)]
+
+
+class _Accumulator:
+    """Gradients of the rounds of one phase: one round's as they are; over
+    more, their float32 sum divided by the rounds. Scalars are averaged."""
+
+    def __init__(self, rounds: int):
+        self.rounds = rounds
+        self.sum = None
+        self.scalars = []
+
+    def add(self, grads, scalars):
+        self.scalars.append(scalars)
+        if self.rounds == 1:
+            self.sum = grads
+        elif self.sum is None:
+            self.sum = {k: g.float() for k, g in grads.items()}
+        else:
+            self.sum = {k: self.sum[k] + g.float() for k, g in grads.items()}
+
+    def grads(self):
+        if self.rounds == 1:
+            return self.sum
+        return {k: g / self.rounds for k, g in self.sum.items()}
+
+    def mean_scalars(self):
+        if self.rounds == 1:
+            return self.scalars[0]
+        return {k: torch.stack([s[k] for s in self.scalars]).mean()
+                for k in self.scalars[0]}
 
 
 def _detached(scalars):
@@ -139,7 +254,12 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
     labels_rec_1/2 [mb, L], reals [2 mb, C, H, W] uint8, labels [2 mb, L];
     numpy arrays or tensors. The phases are also returned one by one as
     ``train_step.phases``."""
-    latent_size = G.mapping.latent_size
+    # as the JAX package asserts: microbatch boundaries would move with the
+    # number of cards, and each round draws its own batch-scalar values
+    assert not (cfg.invariant_rng and cfg.grad_accum_rounds != 1), (
+        "invariant_rng guarantees sharding-invariance only for the rounds=1 "
+        "fast path")
+    rounds = cfg.grad_accum_rounds
     label_size = G.mapping.label_size
     beta = G.dlatent_avg_beta
     if cfg.lazy_regularization:
@@ -177,55 +297,71 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
         r2 = _process_reals(batch["reals_rec_2"], draws["flip2"],
                             cfg.mirror_augment, cfg.drange_data)
         mb = r1.shape[0]
-        out = g_main_loss(
-            state.G, state.D, lpips_params, draws=draws,
-            latents_rec_1=batch["latents_rec_1"], reals_rec_1=r1,
-            labels_rec_1=batch["labels_rec_1"],
-            latents_rec_2=batch["latents_rec_2"], reals_rec_2=r2,
-            labels_rec_2=batch["labels_rec_2"],
-            arb_latents=draws["arb_latents"].to(device),
-            arb_labels=torch.zeros((mb, label_size), device=device),
-            NN_rec_lpips_weight=rec_w, lpips_dtype=cfg.lpips_dtype or torch.float32,
-            lpips_norm=cfg.lpips_norm, batched=cfg.g_loss_batched, impl=impl)
-        g_loss = out.loss.mean()
-        grads = _grads(g_loss, g_trainables(params_of(state.G)))
-        state = g_adam(state, grads, g_lrate)
-        fold(state, out.dlatent_batch_avgs)
-        return state, _detached({**out.scalars, "Loss/G_total": g_loss})
+        data = dict(latents_rec_1=batch["latents_rec_1"], reals_rec_1=r1,
+                    labels_rec_1=batch["labels_rec_1"],
+                    latents_rec_2=batch["latents_rec_2"], reals_rec_2=r2,
+                    labels_rec_2=batch["labels_rec_2"],
+                    arb_latents=draws["arb_latents"].to(device),
+                    arb_labels=torch.zeros((mb, label_size), device=device))
+        trainables = g_trainables(params_of(state.G))
+        acc, avgs = _Accumulator(rounds), []
+        for part, rd in zip(_split(data, rounds), _round_draws(draws, rounds)):
+            out = g_main_loss(
+                state.G, state.D, lpips_params, draws=rd, **part,
+                NN_rec_lpips_weight=rec_w,
+                lpips_dtype=cfg.lpips_dtype or torch.float32,
+                lpips_norm=cfg.lpips_norm, batched=cfg.g_loss_batched, impl=impl)
+            g_loss = out.loss.mean()
+            acc.add(_grads(g_loss, trainables), {**out.scalars, "Loss/G_total": g_loss})
+            avgs += out.dlatent_batch_avgs  # folded in round order
+        state = g_adam(state, acc.grads(), g_lrate)
+        fold(state, avgs)
+        return state, _detached(acc.mean_scalars())
 
     def g_reg_step(state: TrainState, draws, g_lrate):
-        reg, new_pl, scalars, ba = g_path_reg(
-            state.G, draws=draws, pl_mean=state.pl_mean, label_size=label_size,
-            pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight, impl=impl)
-        grads = _grads(reg.mean() * cfg.G_reg_interval,
-                       g_trainables(params_of(state.G)))
-        state = g_adam(state, grads, g_lrate)
-        fold(state, [ba])
-        return state._replace(pl_mean=new_pl), _detached(scalars)
+        trainables = g_trainables(params_of(state.G))
+        acc, avgs, pl_mean = _Accumulator(rounds), [], state.pl_mean
+        for rd in _round_draws(draws, rounds):
+            # pl_mean threads through the rounds in sequence
+            reg, pl_mean, scalars, ba = g_path_reg(
+                state.G, draws=rd, pl_mean=pl_mean, label_size=label_size,
+                pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight, impl=impl)
+            acc.add(_grads(reg.mean() * cfg.G_reg_interval, trainables), scalars)
+            avgs.append(ba)
+        state = g_adam(state, acc.grads(), g_lrate)
+        fold(state, avgs)
+        return state._replace(pl_mean=pl_mean), _detached(acc.mean_scalars())
 
     def d_step(state: TrainState, batch, draws, d_lrate, gs_beta):
         reals = _process_reals(batch["reals"], draws["flip"], cfg.mirror_augment,
                                cfg.drange_data)
         n2 = reals.shape[0]
-        loss, scalars, avgs = d_main_loss(
-            state.G, state.D, draws=draws, reals=reals, labels=batch["labels"],
-            arb_latents=draws["arb_latents"].to(device),
-            arb_labels=torch.zeros((n2, label_size), device=device), impl=impl)
-        d_loss = loss.mean()
-        state = d_adam(state, _grads(d_loss, params_of(state.D)), d_lrate)
+        data = dict(reals=reals, labels=batch["labels"],
+                    arb_latents=draws["arb_latents"].to(device),
+                    arb_labels=torch.zeros((n2, label_size), device=device))
+        params = params_of(state.D)
+        acc, avgs = _Accumulator(rounds), []
+        for part, rd in zip(_split(data, rounds), _round_draws(draws, rounds)):
+            loss, scalars, round_avgs = d_main_loss(state.G, state.D, draws=rd,
+                                                    **part, impl=impl)
+            d_loss = loss.mean()
+            acc.add(_grads(d_loss, params), {**scalars, "Loss/D_total": d_loss})
+            avgs += round_avgs
+        state = d_adam(state, acc.grads(), d_lrate)
         fold(state, avgs)
         assign(state.Gs, update_gs(params_of(state.G), params_of(state.Gs), gs_beta))
-        return (state._replace(step=state.step + 1),
-                _detached({**scalars, "Loss/D_total": d_loss}))
+        return state._replace(step=state.step + 1), _detached(acc.mean_scalars())
 
     def d_reg_step(state: TrainState, batch, draws, d_lrate):
         reals = _process_reals(batch["reals"], draws["flip"], cfg.mirror_augment,
                                cfg.drange_data)
-        reg, scalars = d_r1_reg(state.D, reals=reals, labels=batch["labels"],
-                                gamma=cfg.gamma, impl=impl)
-        state = d_adam(state, _grads(reg.mean() * cfg.D_reg_interval,
-                                     params_of(state.D)), d_lrate)
-        return state, _detached(scalars)
+        params = params_of(state.D)
+        acc = _Accumulator(rounds)
+        for part in _split(dict(reals=reals, labels=batch["labels"]), rounds):
+            reg, scalars = d_r1_reg(state.D, **part, gamma=cfg.gamma, impl=impl)
+            acc.add(_grads(reg.mean() * cfg.D_reg_interval, params), scalars)
+        state = d_adam(state, acc.grads(), d_lrate)
+        return state, _detached(acc.mean_scalars())
 
     def to_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -237,7 +373,8 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
         batch = to_device(batch)
         if draws is None:
             draws = draw_train_step(G, batch["latents_rec_1"].shape[0], generator,
-                                    cfg, do_g_reg=do_g_reg, do_d_reg=do_d_reg)
+                                    cfg, do_g_reg=do_g_reg, do_d_reg=do_d_reg,
+                                    device=device)
         rec_w = cfg.NN_rec_lpips_weight if rec_weight is None else rec_weight
         scalars = {}
         state, s = g_step(state, batch, draws["g"], g_lrate, rec_w)

@@ -34,8 +34,13 @@ as numpy arrays, inline or on the prefetcher's thread, and copied to the
 card by the train step on this thread. The card's peak memory
 (``torch.cuda.max_memory_allocated``) is reported at each tick.
 
-Not ported yet, and refused before anything runs: gradient accumulation
-and ``invariant_rng``, the DCI backend and more than one device
+A minibatch over ``minibatch_gpu`` per device trains by gradient
+accumulation (``grad_accum_rounds``, printed as in the JAX loop);
+``invariant_rng`` keys every draw by the global example index, its step
+generator then on the host; ``knn_backend`` picks the IMLE retrieval
+(``exact``, ``dci`` or ``auto``, routed as in the JAX package).
+
+Not ported yet, and refused before anything runs: more than one device
 (``ROADMAP.md`` queue 1). Each metric of ``metric_arg_list`` is built once
 before the networks, so that a bad argument raises first.
 """
@@ -58,7 +63,7 @@ from ..utils.network_util import print_layers
 from ..utils.run_harness import RunContext
 from ..utils.stats import StatsCollector
 from ..utils.tfevents import EventWriter
-from .imle import IMLEOrchestrator, check_knn_backend, func_proj_dim
+from .imle import IMLEOrchestrator
 from .schedule import resume_rampup_scale, training_schedule
 from .train_state import create_train_state, params_of
 from .train_step import TrainConfig, make_train_step
@@ -93,16 +98,9 @@ def load_snapshot(path: str, device="cuda"):
                   for name, m in (("g_params", G), ("d_params", D), ("gs_params", Gs))}
 
 
-def _refuse_unported(num_devices, invariant_rng, knn_backend, metric_arg_list):
-    """Raise NotImplementedError for what the port does not do yet, each
-    with its ``ROADMAP.md`` item, and build the metrics, before anything
-    loads."""
-    if invariant_rng:
-        raise NotImplementedError("invariant_rng is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 4)")
-    if knn_backend == "dci":
-        raise NotImplementedError("knn_backend='dci' is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 5)")
+def _refuse_unported(num_devices, metric_arg_list):
+    """Raise NotImplementedError for more than one device (``ROADMAP.md``
+    queue 1 item 6), and build the metrics, before anything loads."""
     if num_devices is not None and num_devices > 1:
         raise NotImplementedError(f"num_devices={num_devices}: training on more "
                                   "than one card is not ported yet (ROADMAP.md, "
@@ -174,7 +172,7 @@ def training_loop(
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to train "
                            "on the CPU")
-    _refuse_unported(num_devices, invariant_rng, knn_backend, metric_arg_list)
+    _refuse_unported(num_devices, metric_arg_list)
 
     # ------------------------------------------------------------ datasets
     # Both streams iterate in a fixed order: the IMLE cursor arithmetic
@@ -184,16 +182,6 @@ def training_loop(
     training_set_rec = load_dataset(data_dir=data_dir, verbose=False,
                                     shuffle=False, **dataset_args)
     image_dim = int(np.prod(training_set.shape))
-    check_knn_backend(knn_backend, data_size * num_samples_factor,
-                      func_proj_dim(init_proj_dim, data_size, num_samples_factor,
-                                    image_dim))
-    sched0 = training_schedule(cur_nimg=0, resolution_log2=training_set.resolution_log2,
-                               **sched_args)
-    if max(sched0.minibatch_size // sched0.minibatch_gpu, 1) > 1:
-        raise NotImplementedError(
-            f"minibatch {sched0.minibatch_size} over {sched0.minibatch_gpu} per "
-            "device needs gradient accumulation, not ported yet (ROADMAP.md, "
-            "queue 1 item 4)")
 
     run_dir = submit_config.run_dir if submit_config is not None else "."
     stats = StatsCollector(run_dir)
@@ -304,8 +292,21 @@ def training_loop(
         return out[:n]
 
     # ------------------------------------------------------------ train step
+    # gradient-accumulation rounds = minibatch_size / (minibatch_gpu x
+    # devices); the resolution is fixed, so the count is too
+    sched0 = training_schedule(cur_nimg=int(resume_kimg * 1000),
+                               resolution_log2=training_set.resolution_log2,
+                               **sched_args)
+    num_dev = 1
+    grad_accum_rounds = max(sched0.minibatch_size // num_dev // sched0.minibatch_gpu, 1)
+    if grad_accum_rounds > 1:
+        assert sched0.minibatch_size % (sched0.minibatch_gpu * num_dev) == 0, \
+            (sched0.minibatch_size, sched0.minibatch_gpu, num_dev)
+        print(f"gradient accumulation: {grad_accum_rounds} rounds of "
+              f"{sched0.minibatch_gpu}/device")
+
     cfg = TrainConfig(
-        grad_accum_rounds=1,
+        grad_accum_rounds=grad_accum_rounds,
         NN_rec_lpips_weight=G_loss_args.get("NN_rec_lpips_weight", 2.5),
         **({"g_loss_batched": G_loss_args["batched"]}
            if "batched" in G_loss_args else {}),
@@ -334,7 +335,9 @@ def training_loop(
     # offset by the earlier runs' seconds, so that the time column goes on
     train_start_time = tick_start_time - resume_time
     running_mb_counter = 0
-    step_gen = torch.Generator(dev).manual_seed(seed + 11)
+    # invariant_rng draws on the host: its generator lives there, so that
+    # reading the phase seeds does not wait for the card
+    step_gen = torch.Generator("cpu" if invariant_rng else dev).manual_seed(seed + 11)
     iters_done = 0
     profiler = None
 

@@ -1,6 +1,8 @@
 """The port's metric framework, FID, IS and run_metrics CLI
 (inclusivegan_torch.metrics, inclusivegan_torch.run_metrics) against the JAX
-package's, on the CPU.
+package's, on the CPU. FID, the CLI and the loop's metrics have files of
+their own (test_torch_metrics_fid.py, _cli.py, _loop.py), which share this
+module's fixtures.
 
 FID and IS: both packages' metric classes evaluate the same uint8 images,
 fakes from a stand-in sampler and reals from one 16 px TFRecord set
@@ -14,7 +16,6 @@ level. Registry: the same names and arguments, every metric built in both
 packages; the CLI's weights routed as the JAX CLI routes them.
 """
 
-import os
 import pickle
 
 import jax
@@ -23,22 +24,18 @@ import pytest
 import torch
 
 import inclusivegan_tpu.models.inception as jinc
-from inclusivegan_torch import run_metrics
 from inclusivegan_torch.metrics import frechet_inception_distance as tfid
 from inclusivegan_torch.metrics import inception_score as tis
 from inclusivegan_torch.metrics import metric_base as tmb
 from inclusivegan_torch.metrics.metric_defaults import (check_metric_args, metric_args,
                                                         metric_defaults)
-from inclusivegan_torch.utils.easydict import EasyDict
 from inclusivegan_torch.utils.misc import (apply_mirror_augment,
                                            parse_config_for_previous_run)
 from inclusivegan_torch.utils.run_harness import SubmitConfig
-from inclusivegan_tpu.metrics import frechet_inception_distance as jfid
 from inclusivegan_tpu.metrics import inception_score as jis
 from inclusivegan_tpu.metrics import metric_base as jmb
 from inclusivegan_tpu.metrics.metric_defaults import metric_defaults as jax_defaults
 from inclusivegan_tpu.utils import misc as jmisc
-from test_torch_training_loop import LOOP, _args, toy_dataset  # noqa: F401
 from torch_golden import jax_draws
 from torch_golden.narrow_nets import RES, ZDIM, narrow_nets
 
@@ -131,26 +128,6 @@ def _fakes():
     return np.random.RandomState(8).randint(0, 256, (N_IMAGES, 3, RES, RES)).astype(np.uint8)
 
 
-def test_fid_matches_jax_from_identical_images(jax_inception, toy_dataset, tmp_path,  # noqa: F811
-                                               monkeypatch):
-    data_dir, name = os.path.dirname(toy_dataset), os.path.basename(toy_dataset)
-    dataset_args = dict(tfrecord_dir=name, max_label_size="full")
-    out = {}
-    for pkg, cls in (("jax", jfid.FID), ("port", tfid.FID)):
-        monkeypatch.setenv("INCLUSIVEGAN_CACHE", str(tmp_path / pkg))
-        m = cls("fid4", num_images=N_IMAGES, minibatch_per_gpu=BATCH,
-                feature_net_weights=jax_inception)
-        m._mirror_augment = True
-        m._mirror_rng = np.random.default_rng(123)
-        m._evaluate(_Images(_fakes()), dataset_args=dataset_args, data_dir=data_dir)
-        out[pkg] = m._results
-        assert len(os.listdir(tmp_path / pkg)) == 1  # the reals' statistics, cached
-    (value, suffix, _), (jvalue, jsuffix, _) = out["port"][0], out["jax"][0]
-    assert len(out["port"]) == len(out["jax"]) == 1 and suffix == jsuffix == ""
-    assert value > 0
-    np.testing.assert_allclose(value, jvalue, rtol=METRIC_RTOL)
-
-
 def test_is_matches_jax_from_identical_images(jax_inception):
     out = {}
     for pkg, cls in (("jax", jis.IS), ("port", tis.IS)):
@@ -201,81 +178,3 @@ def test_gs_sampler_matches_jax_with_its_noise(snapshot_16px):
     assert got.shape == want.shape == (num, 3, RES, RES) and got.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
     assert got.std() > 1
-
-
-def test_run_metrics_cli_on_a_16px_snapshot(snapshot_16px, toy_dataset, tmp_path,  # noqa: F811
-                                            monkeypatch):
-    """``python -m inclusivegan_torch.run_metrics`` with dummy and FID (the
-    registry's fid10k cut to 16 images) on the CPU: a run dir with one line
-    per metric, FID finite and tagged _random_features."""
-    monkeypatch.setenv("INCLUSIVEGAN_CACHE", str(tmp_path / "cache"))
-    monkeypatch.setitem(metric_defaults, "fid10k",
-                        EasyDict(metric_defaults["fid10k"], num_images=16))
-    results = run_metrics.main([
-        "--network", snapshot_16px, "--metrics", "dummy,fid10k",
-        "--data-dir", os.path.dirname(toy_dataset), "--dataset",
-        os.path.basename(toy_dataset), "--mirror-augment", "true",
-        "--result-dir", str(tmp_path / "results"), "--device", "cpu"])
-    assert results["dummy"] == 0.0 and np.isfinite(results["fid10k"])
-    assert results["fid10k"] > 0 and results["fid10k_random_features"] == 1.0
-    (run_dir,) = [os.path.join(tmp_path / "results", d)
-                  for d in os.listdir(tmp_path / "results")]
-    assert run_dir.endswith("-run_metrics")
-    fid_lines = open(os.path.join(run_dir, "metric-fid10k.txt")).read().splitlines()
-    assert len(fid_lines) == 1 and "fid10k_random_features 1" in fid_lines[0]
-    assert "network-snapshot-000000" in fid_lines[0]
-    assert len(open(os.path.join(run_dir, "metric-dummy.txt")).read().splitlines()) == 1
-    log = open(os.path.join(run_dir, "log.txt")).read()
-    assert "fid10k: Gs 16 images" in log and "fid10k: InceptionV3 16 images" in log
-
-
-def test_run_metrics_cli_refuses_before_loading(tmp_path):
-    """An unknown name, or more than one card, raises before a run dir is
-    made."""
-    argv = ["--network", "missing.pkl", "--data-dir", str(tmp_path), "--dataset", "x",
-            "--result-dir", str(tmp_path / "results")]
-    with pytest.raises(ValueError, match="unknown metric"):
-        run_metrics.main(argv + ["--metrics", "fid10k,pr50"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        run_metrics.main(argv + ["--metrics", "pr50k3", "--num-gpus", "2"])
-    assert not (tmp_path / "results").exists()
-
-
-@pytest.mark.parametrize("name,lpips,classifier", [
-    ("ppl_wend", True, False), ("ppl2_wend", True, False), ("mode_counts_24k", False, True),
-    ("KL24k", False, True), ("ls", False, False), ("fid30k", False, False)])
-def test_run_metrics_routes_weights_as_the_jax_cli(name, lpips, classifier, monkeypatch):
-    """``--lpips-weights`` reaches the PPL metrics only, ``--classifier-weights``
-    mode_counts and KL only, as the JAX package's ``run_metrics.run`` routes
-    them."""
-    seen = []
-    monkeypatch.setattr(tmb, "run_metric", lambda args, **kw: seen.append(args) or {})
-    run_metrics.run(SubmitConfig(run_dir="x"), "net.pkl", [metric_defaults[name]], "ds",
-                    "dir", lpips_weights="l.npz", classifier_weights="c.npz", device="cpu")
-    (args,) = seen
-    assert args.get("lpips_weights") == ("l.npz" if lpips else None)
-    assert args.get("classifier_weights") == ("c.npz" if classifier else None)
-
-
-def test_loop_runs_metrics_at_each_network_snapshot(toy_dataset, tmp_path):  # noqa: F811
-    """The loop runs every metric on each network snapshot it writes; one
-    that fails is printed and training goes on."""
-    from inclusivegan_torch.utils.run_harness import submit_run
-    broken = dict(name="broken", func_name="inclusivegan_torch.metrics.metric_base."
-                                           "MetricBase")
-    root = str(tmp_path / "results")
-    state = submit_run(SubmitConfig(run_dir_root=root, run_desc="metrics"), LOOP,
-                       **_args(toy_dataset, metric_arg_list=[metric_defaults["dummy"],
-                                                             broken],
-                               total_kimg=0.032, network_snapshot_ticks=1,
-                               image_snapshot_ticks=100, prefetch_depth=0,
-                               save_full_checkpoints=False, seed=3, device="cpu",
-                               sched_args=dict(minibatch_size_base=8,
-                                               minibatch_gpu_base=8,
-                                               tick_kimg_base=0.016)))
-    run_dir = os.path.join(root, "00000-metrics")
-    # two ticks, two network snapshots; at this scale both are named for 0 kimg
-    lines = open(os.path.join(run_dir, "metric-dummy.txt")).read().splitlines()
-    assert len(lines) == 2 and int(state.step) == 4
-    assert all(line.startswith("network-snapshot-000000 ") for line in lines)
-    assert open(os.path.join(run_dir, "log.txt")).read().count("metric broken failed") == 2

@@ -20,6 +20,7 @@ resumes them (float16 kept where JAX keeps it).
 
 import copy
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -235,11 +236,17 @@ def test_lazy_reg_hparams_match_jax(interval):
 
 @pytest.mark.parametrize("field,value", [
     ("invariant_rng", True), ("grad_accum_rounds", 2)])
-def test_unhonoured_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        TrainConfig(**{field: value})
-    neutral = {"invariant_rng": False, "grad_accum_rounds": 1}[field]
-    assert TrainConfig(**{field: neutral}) == TrainConfig()
+def test_config_takes_rounds_and_invariant_rng(field, value):
+    """Both fields of the JAX TrainConfig are honoured; as there, a step
+    with invariant_rng and more than one round is refused."""
+    cfg = TrainConfig(**{field: value}, gamma=100.0)
+    assert getattr(cfg, field) == value and cfg.gamma == 100.0
+    assert TrainConfig(**{field: getattr(TrainConfig(), field)}) == TrainConfig()
+    G, D, gp, dp, gc, dc = narrow_nets()
+    TG, TD = to_port(gc, gp, dc, dp)
+    with pytest.raises(AssertionError, match="invariant_rng"):
+        make_train_step(TG, TD, None, TrainConfig(invariant_rng=True, grad_accum_rounds=2),
+                        device="cpu", impl="plain")
 
 
 @pytest.mark.parametrize("donate", [False, True])
@@ -280,6 +287,167 @@ def test_float16_trees_step_like_jax_and_stay_float16():
         assert state.G.state_dict()[k].dtype == torch.float16, k
     assert all(p.dtype == torch.float16 for p in state.D.parameters())
     assert state.Gs.state_dict()["synthesis.4x4.Conv.weight"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Gradient accumulation and invariant_rng against the JAX step, through a
+# golden of it (tests/torch_golden/make_step_golden.py: minibatch 4, two
+# rounds of 2, and invariant_rng at one round), at the tolerances above.
+
+STEP_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_golden",
+                           "step_rounds_invariant_golden.npz")
+STEP_CONFIGS = {"rounds": dict(grad_accum_rounds=2), "invariant": dict(invariant_rng=True)}
+
+
+@pytest.fixture(scope="module")
+def golden_iterations():
+    """{config: (golden, port states and scalars after each phase)}."""
+    from torch_golden.make_step_golden import batch
+    golden = np.load(STEP_GOLDEN)
+    lp = jax.tree_util.tree_map(np.asarray, init_pixel_fallback_params())
+    G, D, gp, dp, gc, dc = narrow_nets()
+    out = {}
+    for name, kw in STEP_CONFIGS.items():
+        TG, TD = to_port(gc, gp, dc, dp)
+        TGs, _ = to_port(gc, gp, dc, dp)
+        state = create_train_state(TG, TD, TGs)
+        step = make_train_step(TG, TD, lpips_params_from_numpy(lp, "cpu"),
+                               TrainConfig(**CFG, **kw), device="cpu", impl="plain")
+        pre = f"{name}/draws/"
+        draws = jax_draws.unflatten_draws(
+            {k[len(pre):]: golden[k] for k in golden.files if k.startswith(pre)})
+        tb = step.phases["to_device"](batch())
+        after = []
+        for fn in (lambda s: step.phases["g_step"](s, tb, draws["g"], G_LR, 2.5),
+                   lambda s: step.phases["g_reg_step"](s, draws["g_reg"], G_LR),
+                   lambda s: step.phases["d_step"](s, tb, draws["d"], D_LR, GS_BETA),
+                   lambda s: step.phases["d_reg_step"](s, tb, draws["d_reg"], D_LR)):
+            state, scalars = fn(state)
+            after.append((copy.deepcopy(state), scalars))
+        out[name] = (golden, after)
+    return out
+
+
+@pytest.mark.parametrize("phase", range(4), ids=[p for p, _ in PHASES])
+@pytest.mark.parametrize("config", sorted(STEP_CONFIGS))
+def test_accumulated_and_invariant_phases_match_jax(golden_iterations, config, phase):
+    """Each phase's scalars (averaged over the rounds), gradient (the
+    float32 mean of the rounds') and Adam count, against JAX's."""
+    golden, after = golden_iterations[config]
+    name, opt = PHASES[phase]
+    state, scalars = after[phase]
+    pre = f"{config}/scalar/{name}/"
+    jscalars = {k[len(pre):]: float(golden[k]) for k in golden.files if k.startswith(pre)}
+    assert set(scalars) == set(jscalars)
+    for k, v in jscalars.items():
+        np.testing.assert_allclose(float(scalars[k]), v, rtol=1e-4, atol=1e-5, err_msg=k)
+    pre = f"{config}/m/{name}/"
+    jm = {k[len(pre):]: golden[k] for k in golden.files if k.startswith(pre)}
+    m = getattr(state, opt).m
+    assert set(m) == set(jm)
+    for k in m:
+        _close(m[k], jm[k], f"{config} {name} gradient of {k}")
+    assert int(getattr(state, opt).count) == int(golden[f"{config}/count/{name}"])
+
+
+@pytest.mark.parametrize("config", sorted(STEP_CONFIGS))
+def test_accumulated_and_invariant_state_matches_jax(golden_iterations, config):
+    """v, pl_mean (threaded through the rounds) and dlatent_avg (the rounds'
+    batch averages folded in round order) after the iteration."""
+    golden, after = golden_iterations[config]
+    state = after[-1][0]
+    for opt in ("g_opt", "d_opt"):
+        pre = f"{config}/v/{opt}/"
+        for k, v in getattr(state, opt).v.items():
+            _close(v, golden[pre + k], f"{config} {opt}.v of {k}")
+    np.testing.assert_allclose(float(state.pl_mean), float(golden[f"{config}/pl_mean"]),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(state.G.dlatent_avg.numpy(), golden[f"{config}/dlatent_avg"],
+                               rtol=1e-4, atol=1e-6)
+    assert int(state.step) == 1
+
+
+def test_invariant_draws_concatenate_across_offsets():
+    """invariant_rng: the draws of a global batch of 4 at offset 0 are the
+    draws at offsets 0 and 2 of two batches of 2, bit for bit (per-example
+    leaves concatenated, the batched G noise group by group, the
+    path-length examples at offsets 0 and 1); the mixing cutoffs are shared.
+    Another generator seed draws other values."""
+    from inclusivegan_torch.training.train_step import draw_train_step, flatten_draws
+    G, D, gp, dp, gc, dc = narrow_nets()
+    TG, _ = to_port(gc, gp, dc, dp)
+    cfg = TrainConfig(invariant_rng=True)
+
+    def draws(mb, offset, seed=0):
+        return flatten_draws(draw_train_step(TG, mb, torch.Generator().manual_seed(seed),
+                                             cfg, example_offset=offset, device="cpu"))
+
+    whole, a, b = draws(4, 0), draws(2, 0), draws(2, 2)
+    assert set(whole) == set(a) == set(b)
+    for k, w in whole.items():
+        if w.ndim == 0:  # a shared cutoff
+            assert torch.equal(w, a[k]) and torch.equal(w, b[k]), k
+        elif k.startswith("g/noise/"):  # [4 forwards x batch, 1, h, w]
+            parts = [torch.cat([x.reshape(4, -1, *x.shape[1:])[f] for x in (a[k], b[k])])
+                     for f in range(4)]
+            assert torch.equal(w, torch.cat(parts)), k
+        else:
+            assert torch.equal(w, torch.cat([a[k], b[k]])), k
+    other = draws(4, 0, seed=1)
+    assert not torch.equal(other["g/arb_latents"], whole["g/arb_latents"])
+
+
+@pytest.mark.parametrize("do_g_reg,do_d_reg", [(False, True), (True, False), (False, False)])
+def test_invariant_draws_skip_the_lazy_phases_and_keep_the_rest(do_g_reg, do_d_reg):
+    """invariant_rng: an iteration without a lazy regularizer draws nothing
+    for it, and its other draws equal the same keys of an iteration with
+    both, bit for bit."""
+    from inclusivegan_torch.training.train_step import draw_train_step, flatten_draws
+    G, D, gp, dp, gc, dc = narrow_nets()
+    TG, _ = to_port(gc, gp, dc, dp)
+    cfg = TrainConfig(invariant_rng=True)
+
+    def draws(**flags):
+        return flatten_draws(draw_train_step(TG, 4, torch.Generator().manual_seed(0), cfg,
+                                             example_offset=2, device="cpu", **flags))
+
+    full, lazy = draws(), draws(do_g_reg=do_g_reg, do_d_reg=do_d_reg)
+    skipped = {p for p, on in (("g_reg/", do_g_reg), ("d_reg/", do_d_reg)) if not on}
+    assert set(lazy) == {k for k in full if not any(k.startswith(p) for p in skipped)}
+    for k, v in lazy.items():
+        assert torch.equal(v, full[k]), k
+
+
+def test_rounds_thread_pl_mean_and_fold_dlatents_in_round_order():
+    """Two rounds of the path-length reg: pl_mean after the phase is the
+    second round's update of the first round's, and dlatent_avg folds the
+    two rounds' batch averages in order; the gradient is the mean of the
+    rounds' gradients."""
+    from inclusivegan_torch.training.loss import fold_dlatent_avg, g_path_reg
+    from inclusivegan_torch.training.train_step import draw_train_step
+    G, D, gp, dp, gc, dc = narrow_nets()
+    TG, TD = to_port(gc, gp, dc, dp)
+    cfg = TrainConfig(grad_accum_rounds=2, **CFG)
+    state = create_train_state(TG, TD)
+    step = make_train_step(TG, TD, None, cfg, device="cpu", impl="plain")
+    draws = draw_train_step(TG, 4, torch.Generator().manual_seed(0), cfg)["g_reg"]
+    pl0, avg0 = state.pl_mean.clone(), TG.dlatent_avg.detach().clone()
+    tr = g_trainables(dict(TG.named_parameters()))
+    pl, bas, grads = pl0, [], []
+    for rd in draws["rounds"]:
+        reg, pl, _, ba = g_path_reg(TG, draws=rd, pl_mean=pl, label_size=0, impl="plain")
+        bas.append(ba.detach())
+        grads.append(torch.autograd.grad(reg.mean() * cfg.G_reg_interval,
+                                         list(tr.values()), allow_unused=True,
+                                         materialize_grads=True))
+    want_dl = fold_dlatent_avg(avg0, bas, TG.dlatent_avg_beta)
+    state, _ = step.phases["g_reg_step"](state, draws, G_LR)
+    assert len(draws["rounds"]) == 2 and float(pl) != float(pl0)
+    assert torch.equal(state.pl_mean, pl)
+    assert torch.equal(TG.dlatent_avg, want_dl)
+    for (k, m), g0, g1 in zip(state.g_opt.m.items(), *grads):
+        torch.testing.assert_close(m, (g0.float() + g1.float()) / 2, rtol=0, atol=0,
+                                   msg=k)
 
 
 GOLDEN = "inclusivegan_torch/testdata/celeba128_train_golden.npz"

@@ -5,8 +5,8 @@ decoded by PIL at the grid's shape), the step count, resume from a snapshot
 (Adam count, step and the IMLE counters).
 
 Both loops take the whole minibatch on one device (``minibatch_gpu_base``
-equal to ``minibatch_size_base``): the JAX fixture's ``MB // 8`` per device
-would need gradient accumulation, which is not ported yet.
+equal to ``minibatch_size_base``); gradient accumulation, invariant_rng and
+the DCI backend each train two iterations on their own.
 
 The control-flow parity test replaces ``make_train_step`` in both loops by a
 recorder (monkeypatched; the JAX package is not edited) and runs both on the
@@ -40,6 +40,17 @@ NETS = dict(G_args=dict(fmap_base=256, fmap_max=32, latent_size=32, dlatent_size
                         mapping_layers=2, mapping_fmaps=32),
             D_args=dict(fmap_base=256, fmap_max=32, mbstd_group_size=2))
 LOOP = "inclusivegan_torch.training.training_loop.training_loop"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The loop's ops are tiny at 16 px: under the suite's parallel workers,
+    torch's intra-op threads contend for the cores (two iterations took
+    150 s instead of 2), so the loop's tests compute on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -236,18 +247,46 @@ def test_bad_metric_arguments_raise_before_the_networks(toy_dataset, metric_args
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(invariant_rng=True), "queue 1 item 4"),
-    (dict(sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB // 2)),
-     "queue 1 item 4"),
-    (dict(knn_backend="dci"), "queue 1 item 5"),
-    (dict(knn_backend="auto", init_proj_dim=None, num_samples_factor=30000),
-     "queue 1 item 5"),
     (dict(num_devices=2), "queue 1 item 6"),
 ])
 def test_unported_knobs_raise_before_the_networks(toy_dataset, kw, match):
     from inclusivegan_torch.training.training_loop import training_loop
     with pytest.raises(NotImplementedError, match=match):
         training_loop(**_args(toy_dataset, device="cpu", **kw))
+
+
+KNOBS = {
+    "invariant_rng": (dict(invariant_rng=True), None),
+    "grad_accum": (dict(sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB // 2,
+                                        tick_kimg_base=0.001)),
+                   "gradient accumulation: 2 rounds of 4/device"),
+    "dci": (dict(knn_backend="dci"), "DCI retrieval done"),
+    "auto_over_budget": (dict(knn_backend="auto"), "DCI retrieval done"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_each_knob_trains_two_iterations(toy_dataset, tmp_path, monkeypatch, knob):
+    """invariant_rng, gradient accumulation (minibatch 8 over 4 per
+    device), the DCI backend, and auto over the exact backend's budget
+    (forced to 0 bytes, so that the 128 candidates route to DCI) each train
+    two iterations and write the run dir; the log says which path ran."""
+    from inclusivegan_torch.training import imle
+    if knob == "auto_over_budget":
+        monkeypatch.setattr(imle, "_EXACT_KNN_MEMORY_BUDGET", 0)
+    kw, line = KNOBS[knob]
+    root = str(tmp_path / "results")
+    state = submit_run(SubmitConfig(run_dir_root=root, run_desc=knob), LOOP,
+                       **_args(toy_dataset, smoke_test_max_iters=2, seed=5,
+                               save_full_checkpoints=False, device="cpu", **kw))
+    run_dir = os.path.join(root, f"00000-{knob}")
+    assert {"log.txt", "network-final.pkl", "_finished.txt", "arb-reals.png"} <= set(
+        os.listdir(run_dir))
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    assert line is None or line in log
+    assert ("Exact retrieval done" in log) == (line is None or "DCI" not in line)
+    assert int(state.step) == 2 and int(state.g_opt.count) == 2 + 1
+    assert all(torch.isfinite(p).all() for p in state.G.parameters())
 
 
 def test_png_writer_decodes_with_pil(tmp_path):
@@ -340,8 +379,11 @@ PARITY = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(PARITY))
-def test_control_flow_matches_the_jax_loop(toy_dataset, tmp_path, monkeypatch, case):
+def check_control_flow(toy_dataset, tmp_path, monkeypatch, case):
+    """Both loops under the recorder for PARITY[case]: the same steps,
+    batches, rebuilds, ticks, files and checkpoints (the test of each case
+    is in test_torch_training_loop_parity.py and _prefetch.py, one file
+    each, so that the two run on different workers)."""
     kw = dict(PARITY[case], seed=5)
     out = {}
     for package in ("jax", "port"):

@@ -168,3 +168,117 @@ def projector_noise(seed, num_steps, shape):
         key, k = random.split(key)
         out.append(_np(random.normal(k, shape)))
     return np.stack(out)
+
+
+def _split_keys(key, n):
+    return [k for k in random.split(key, n)]
+
+
+def train_step_rounds(G, key, mb, rounds, batched=True, pl_minibatch_shrink=2):
+    """Every draw of the JAX iteration with ``grad_accum_rounds=rounds`` on a
+    one-device mesh: the flips and arb latents of the whole batch, and each
+    round's loss draws from ``random.split(phase key, rounds)``, under
+    ``"rounds"``."""
+    k1, k2, k3, k4 = random.split(key, 4)
+    z = G.mapping.latent_size
+
+    def dev(k):
+        return random.fold_in(k, 0)
+
+    k_aug1, k_aug2, k_g, k_arb, _ = random.split(dev(k1), 5)
+    g = {"flip1": _np(random.uniform(k_aug1, (mb, 1, 1, 1))).reshape(mb),
+         "flip2": _np(random.uniform(k_aug2, (mb, 1, 1, 1))).reshape(mb),
+         "arb_latents": _np(random.normal(k_arb, (mb, z))),
+         "rounds": [g_main(G, k, mb // rounds, batched) for k in _split_keys(k_g, rounds)]}
+    g_reg = {"rounds": [g_path_reg(G, k, mb // rounds, pl_minibatch_shrink)
+                        for k in _split_keys(dev(k2), rounds)]}
+    k_aug, k_d, k_arb, _ = random.split(dev(k3), 4)
+    d = {"flip": _np(random.uniform(k_aug, (2 * mb, 1, 1, 1))).reshape(2 * mb),
+         "arb_latents": _np(random.normal(k_arb, (2 * mb, z))),
+         "rounds": [d_main(G, k, 2 * mb // rounds) for k in _split_keys(k_d, rounds)]}
+    return {"g": g, "g_reg": g_reg, "d": d,
+            "d_reg": {"flip": _np(random.uniform(dev(k4), (2 * mb, 1, 1, 1)))
+                      .reshape(2 * mb)}}
+
+
+# the salts of inclusivegan_tpu/training/loss.py and models/stylegan2.py
+_EK_T, _EK_PL_Z, _EK_PL_NOISE = (1 << 20) | 1, (1 << 20) | 2, (1 << 20) | 3
+_EK_FWD_BASE, _EK_MIX = 1 << 21, 1 << 20
+
+
+def _fold(keys, salt):
+    return [random.fold_in(k, salt) for k in keys]
+
+
+def _global_keys(key, n):
+    return [random.fold_in(key, i) for i in range(n)]
+
+
+def _stack(keys, draw):
+    return np.stack([_np(draw(k)) for k in keys])
+
+
+def synthesis_noise_invariant(G, example_keys):
+    """The per-example noise of ``GSynthesis.apply(example_keys=...)``."""
+    syn = G.synthesis
+    out = {}
+    for layer_idx in range(syn.num_layers - 1):
+        res = 2 ** ((layer_idx + 5) // 2)
+        out[f"noise{layer_idx}"] = _stack(
+            example_keys, lambda k: random.normal(random.fold_in(k, layer_idx),
+                                                  (1, res, res)))
+    return out
+
+
+def mixing_invariant(G, key, fwd_keys):
+    """(latents2 per example, shared cutoff) of ``map_latents``/``apply``
+    with ``rng=key`` and ``example_keys=fwd_keys``."""
+    _, _, k2, k3 = random.split(key, 4)
+    num_layers = G.synthesis.num_layers
+    latents2 = _stack(fwd_keys, lambda k: random.normal(
+        random.fold_in(k, _EK_MIX), (G.mapping.latent_size,)))
+    cutoff = np.where(_np(random.uniform(k2)) < G.style_mixing_prob,
+                      _np(random.randint(k3, (), 1, num_layers)), num_layers)
+    return latents2, np.int64(cutoff)
+
+
+def train_step_invariant(G, key, mb, batched=True, pl_minibatch_shrink=2):
+    """Every draw of the JAX iteration with ``invariant_rng=True`` on a
+    one-device mesh (example keys folded from the global index)."""
+    k1, k2, k3, k4 = random.split(key, 4)
+    z = G.mapping.latent_size
+    k_aug1, k_aug2, k_g, k_arb, k_ex = random.split(k1, 5)
+    eks = _global_keys(k_ex, mb)
+    _, k_t, kg1, kg2, kg3, kg4, _ = random.split(k_g, 7)
+    fwd = [_fold(eks, _EK_FWD_BASE + fid) for fid in range(4)]
+    noise = [synthesis_noise_invariant(G, f) for f in fwd]
+    if batched:
+        noise = [{k: np.concatenate([n[k] for n in noise]) for k in noise[0]}]
+    g = {"flip1": _stack(_global_keys(k_aug1, mb), random.uniform),
+         "flip2": _stack(_global_keys(k_aug2, mb), random.uniform),
+         "arb_latents": _stack(_global_keys(k_arb, mb),
+                               lambda k: random.normal(k, (z,))),
+         "t": _stack(_fold(eks, _EK_T), lambda k: random.uniform(k, (1,))),
+         "mixing": [mixing_invariant(G, kk, f)
+                    for kk, f in zip((kg1, kg2, kg3, kg4), fwd)],
+         "noise": noise}
+    pl_mb = max(mb // pl_minibatch_shrink, 1)
+    rng, k_ex = random.split(k2)
+    pl_eks = _global_keys(k_ex, pl_mb)
+    _, _, kfwd, _ = random.split(rng, 4)
+    res = G.synthesis.resolution
+    g_reg = {"pl_latents": _stack(_fold(pl_eks, _EK_PL_Z),
+                                  lambda k: random.normal(k, (z,))),
+             "mixing": mixing_invariant(G, kfwd, _fold(pl_eks, _EK_FWD_BASE)),
+             "pl_noise": _stack(_fold(pl_eks, _EK_PL_NOISE), lambda k: random.normal(
+                 k, (G.synthesis.num_channels, res, res))),
+             "noise": synthesis_noise_invariant(G, _fold(pl_eks, _EK_FWD_BASE + 1))}
+    k_aug, k_d, k_arb, k_ex = random.split(k3, 4)
+    n2 = 2 * mb
+    d_fwd = _fold(_global_keys(k_ex, n2), _EK_FWD_BASE)
+    d = {"flip": _stack(_global_keys(k_aug, n2), random.uniform),
+         "arb_latents": _stack(_global_keys(k_arb, n2), lambda k: random.normal(k, (z,))),
+         "mixing": mixing_invariant(G, k_d, d_fwd),
+         "noise": synthesis_noise_invariant(G, d_fwd)}
+    return {"g": g, "g_reg": g_reg, "d": d,
+            "d_reg": {"flip": _stack(_global_keys(k4, n2), random.uniform)}}
