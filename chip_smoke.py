@@ -143,15 +143,43 @@ Phases, each logged with the seconds since start:
      ``--knn-backend dci`` and with ``--invariant-rng true``, and
      ``submit_run`` with minibatch 12 over 6 per device, each with its
      launch counts set to 0 just before and read just after.
+ 16. data parallelism (``inclusivegan_torch/parallel``), at full width:
+     the CelebA networks, its LPIPS, minibatch 6 per rank, both lazy
+     regularizers, float32 with TF32 off. The card's machine has one card,
+     so (a) one iteration in a one-rank NCCL group against the single-card
+     step from one state and one set of draws, under deterministic
+     algorithms: every loss scalar, gradient, parameter, Adam moment,
+     pl_mean, Gs and dlatent_avg equal bit for bit, each phase's launches
+     phase 9's derived counts, NCCL's version printed, seconds per
+     iteration both ways in turns; (b) two gloo ranks sharing the card
+     (``spawn``, gloo derived from the shared card): with invariant_rng
+     and the minibatch stddev off, 2 x 6 against one process of 12, phase
+     by phase, scalars within phase 9's limits, the kernel path of 12
+     within phase 9's gradient limit of the plain path of 12, and half the
+     ranks' summed gradient within that limit of 12 (in G main, where the
+     plain path split into two halves of 6 moves a gradient past the limit,
+     within it of the kernel path's halves and no farther from 12 than the
+     plain path's halves plus it); with the snapshot's D
+     and each rank's own draws, one iteration after which both ranks hold
+     the same bytes, each rank's launches the derived counts, its seconds
+     (gloo's host copies, not a data-parallel time); (c) ``submit_run`` of
+     the loop that ``run_training --num-gpus 2`` submits, on those two
+     ranks, 4 iterations with one IMLE rebuild of 600 candidates on rank 0:
+     rank 0 alone writes the run dir (phase 12's files), both ranks end
+     with the same G, D, Gs and Adam moments, each rank's launches derived;
+     and ``run_training --num-gpus 2`` raising before a run dir on this
+     one-card machine; (d) ``GsSampler`` over the two ranks against one
+     rank, 64 images: at most one uint8 level apart.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
-300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s and
-phase 15 under 150 s; a run over any budget fails. Any failure raises and
+300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s,
+phase 15 under 150 s and phase 16 under 120 s; a run over any budget fails. Any failure raises and
 the script exits non-zero. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Each kernel's record takes its
 ``launches`` and its timings (shape, ms, plain, bound, library) from one
 path, the IvOM projector of phase 14; the timing of phase 6 or 11 stands
 under ``earlier_timing``, and every path's launches, phase 15's
-``run_training --knn-backend dci`` among them, under ``launches_by_path``.
+``run_training --knn-backend dci`` and phase 16's ranks among them, under
+``launches_by_path``.
 """
 
 import contextlib
@@ -2912,6 +2940,494 @@ def retrieval_phase(np, torch, ck, reals_dir):
     return dict(loop_launches, dci_rebuild=rebuild_launches)
 
 
+# Phase 16, data parallelism over torch.distributed: the CelebA networks at
+# full width, minibatch 6 per rank, both lazy regularizers, float32 with TF32
+# off. The card's machine has one card, so NCCL runs at world size 1, and two
+# ranks share the card over gloo (host copies for every collective: their
+# times measure those copies, not data parallelism).
+DP_BUDGET_S = 120
+DP_WORLD = 2
+DP_DATA_SIZE = 24  # 2 ranks x 6, twice: one epoch per 2 iterations
+DP_SAMPLES_FACTOR = 25  # 600 candidates, one rebuild
+DP_ITERS = 4
+DP_IMAGES = 64  # GsSampler over 2 ranks against 1, in minibatches of 32
+DP_SAMPLER_MB = 32
+DP_IMG_MAX_LEVELS = 1  # other batch sizes per rank may take other algorithms
+
+
+def dp_networks(torch, device="cuda"):
+    """The CelebA snapshot's G, D and Gs at float32, and the CelebA LPIPS."""
+    from inclusivegan_torch.models.lpips import load_lpips_params
+    from inclusivegan_torch.snapshot import load_networks
+    G, D, Gs = load_networks(NETWORK, device=device)
+    for net in (G, D, Gs):
+        net.float()
+    return G, D, Gs, load_lpips_params(LPIPS_WEIGHTS, device=device)
+
+
+def state_tensors(state):
+    """Every tensor of a train state, in a fixed order, by name."""
+    out = {f"{k}.{n}": t for k in ("G", "D", "Gs")
+           for n, t in getattr(state, k).state_dict().items()}
+    for k in ("g_opt", "d_opt"):
+        opt = getattr(state, k)
+        out.update({f"{k}.m.{n}": t for n, t in opt.m.items()})
+        out.update({f"{k}.v.{n}": t for n, t in opt.v.items()})
+        out[f"{k}.count"] = opt.count
+    out["pl_mean"], out["step"] = state.pl_mean, state.step
+    return out
+
+
+def nccl_world_one(np, torch, ck, nets, failures):
+    """Phase 16 (a): one iteration in a one-rank NCCL group against the
+    single-card step, from one state and one set of draws, under
+    deterministic algorithms: every scalar, gradient and state tensor equal
+    bit for bit, each phase's launches the derived counts; then seconds per
+    iteration both ways, in turns."""
+    import torch.distributed as dist
+    from inclusivegan_torch import parallel
+    from inclusivegan_torch.profile_train import synthetic_batch
+    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_step import (
+        TrainConfig, draw_train_step, make_train_step)
+    G, D, Gs, lpips = nets
+    state0 = create_train_state(G, D, Gs)
+    cfg = TrainConfig(**TRAIN_CONFIG)
+    expected = expected_launches(G, D)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    parallel.init_data_parallel(0, 1, "file://" + os.path.join(tmp, "init"))
+    try:
+        backend = dist.get_backend()
+        nccl = torch.cuda.nccl.version()
+        log(f"process group: backend {backend}, world size {dist.get_world_size()}, "
+            f"NCCL {'.'.join(map(str, nccl)) if isinstance(nccl, tuple) else nccl}")
+        if backend != "nccl":
+            failures.append(f"the one-rank group's backend is {backend}, not nccl")
+        steps = {"single card": make_train_step(G, D, lpips, cfg, device="cuda"),
+                 "NCCL world 1": make_train_step(G, D, lpips, cfg, device="cuda",
+                                                 group=dist.group.WORLD)}
+        batch = steps["single card"].phases["to_device"](synthetic_batch(
+            TRAIN_MB, G.synthesis.resolution, G.mapping.latent_size, G.mapping.label_size))
+        draws = draw_train_step(G, TRAIN_MB, torch.Generator("cuda").manual_seed(11), cfg)
+        runs, launches = {}, {}
+        with deterministic(torch):
+            for name, step in steps.items():
+                cur, per = copy.deepcopy(state0), []
+                go = phase_runners(step, batch, draws, LRATE, LRATE, GS_BETA,
+                                   TRAIN_CONFIG["NN_rec_lpips_weight"])
+                launches[name] = {k: 0 for k in KERNELS}
+                for ph, opt in PHASES:
+                    ck.reset_launches()
+                    cur, scalars = go[ph](cur)
+                    torch.cuda.synchronize()
+                    if dict(ck.launches) != expected[ph]:
+                        failures.append(f"{name} {ph}: launches {dict(ck.launches)} != "
+                                        f"{expected[ph]}")
+                    for k, v in ck.launches.items():
+                        launches[name][k] += v
+                    per.append((scalars, {k: v.clone() for k, v in getattr(cur, opt).m.items()}))
+                runs[name] = (per, state_tensors(cur))
+        (p1, s1), (p2, s2) = runs.values()
+        differ = [f"{PHASES[i][0]} scalar {k}" for i in range(4) for k in p1[i][0]
+                  if not torch.equal(p1[i][0][k], p2[i][0][k])]
+        differ += [f"{PHASES[i][0]} gradient {k}" for i in range(4) for k in p1[i][1]
+                   if not torch.equal(p1[i][1][k], p2[i][1][k])]
+        differ += [k for k in s1 if not torch.equal(s1[k], s2[k])]
+        n_compared = sum(len(p[0]) + len(p[1]) for p in p1) + len(s1)
+        log(f"NCCL world 1 against the single-card step: {n_compared} scalars, gradients "
+            f"and state tensors (parameters, Adam moments, pl_mean, Gs, dlatent_avg), "
+            f"{len(differ)} differ in a bit {differ[:4]}; launches per iteration "
+            f"{launches['NCCL world 1']}")
+        if differ:
+            failures.append("the one-rank NCCL step differs from the single-card step")
+        gen = torch.Generator("cuda").manual_seed(11)
+        secs = seconds_per_iteration(torch, {
+            name: (step, copy.deepcopy(state0), batch, gen) for name, step in steps.items()})
+        for name, s in secs.items():
+            log(f"one iteration with both regularizers, {name}: {s:.4f} s (median of 3, "
+                f"host clock)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches["NCCL world 1"], secs
+
+
+def dp_rank(rank, world, init_file, out_dir, latents):
+    """Phase 16 (b) and (d) on one of two gloo ranks that share the card (a
+    spawned process). Writes ``rank<r>.json`` (and rank 0's images) to
+    ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from inclusivegan_torch import parallel
+    from inclusivegan_torch.ops import cuda_kernels as ck
+    parallel.init_data_parallel(rank, world, "file://" + init_file, device="cuda:0")
+    try:
+        out = dp_rank_work(np, torch, ck, rank, world, latents, out_dir)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_rank_work(np, torch, ck, rank, world, latents, out_dir):
+    import torch.distributed as dist
+    from inclusivegan_torch import parallel
+    from inclusivegan_torch.metrics.metric_base import GsSampler
+    from inclusivegan_torch.models.stylegan2 import Discriminator
+    from inclusivegan_torch.profile_train import synthetic_batch
+    from inclusivegan_torch.training.train_state import create_train_state
+    from inclusivegan_torch.training.train_step import (
+        TrainConfig, draw_train_step, make_train_step)
+    from inclusivegan_torch.training.training_loop import step_seed
+    group = dist.group.WORLD
+    marks = [("start", time.perf_counter())]
+    out = {"rank": rank, "backend": dist.get_backend(group)}
+    G, D, Gs, lpips = dp_networks(torch)
+    marks.append(("networks", time.perf_counter()))
+    res, zdim = G.synthesis.resolution, G.mapping.latent_size
+    whole = synthetic_batch(world * TRAIN_MB, res, zdim, G.mapping.label_size)
+    local = {k: v[rank * len(v) // world:(rank + 1) * len(v) // world]
+             for k, v in whole.items()}
+
+    # (b1) invariant_rng with the minibatch stddev off (a fresh config-e
+    # resnet D with group 1, as phase 15): 2 x 6 against 1 x 12 on rank 0,
+    # phase by phase from one state; the ranks' gradient is the sum of
+    # theirs, as the JAX step's, so its half is compared with the one of
+    # 12. Witnesses, each from the same state: in every phase the plain
+    # path of 12 (the kernels at batch 12); in G main, whose noise-strength
+    # gradients are sums that cancel, two halves of 6 in one process, their
+    # gradients summed, on the kernel path (the ranks' batch shapes without
+    # the ranks) and on the plain path (how far the split alone moves a
+    # gradient without the kernels)
+    d1 = Discriminator(resolution=res, num_channels=3, fmap_base=8 << 10,
+                       architecture="resnet", mbstd_group_size=1).to("cuda")
+    d1.init(torch.Generator("cuda").manual_seed(3))
+    cfg = TrainConfig(**TRAIN_CONFIG, invariant_rng=True)
+    step = make_train_step(G, d1, lpips, cfg, device="cuda", group=group)
+    draws = draw_train_step(G, TRAIN_MB, torch.Generator().manual_seed(5), cfg,
+                            example_offset=rank * TRAIN_MB, device="cuda")
+    go = phase_runners(step, step.phases["to_device"](local), draws, LRATE, LRATE,
+                       GS_BETA, TRAIN_CONFIG["NN_rec_lpips_weight"])
+
+    def runners(impl, parts):
+        """Phase runners of one process on the whole batch split into
+        ``parts``, each part with the draws of its examples."""
+        one = make_train_step(G, d1, lpips, cfg, device="cuda", impl=impl)
+        mb = world * TRAIN_MB // parts
+        return [phase_runners(
+            one, one.phases["to_device"]({k: v[r * len(v) // parts:(r + 1) * len(v) // parts]
+                                          for k, v in whole.items()}),
+            draw_train_step(G, mb, torch.Generator().manual_seed(5), cfg,
+                            example_offset=r * mb, device="cuda"),
+            LRATE, LRATE, GS_BETA, TRAIN_CONFIG["NN_rec_lpips_weight"])
+            for r in range(parts)]
+
+    def mean_m(go_list, name, opt, before):
+        """The phase's first Adam moment (its gradient), summed over the
+        parts, over their number, each part from a copy of ``before``
+        (each phase updates the state it is given in place)."""
+        ms = [getattr(go_r[name](copy.deepcopy(before))[0], opt).m for go_r in go_list]
+        return {k: sum(m[k] for m in ms) / len(ms) for k in ms[0]}
+
+    def worst_of(a, b):
+        return max((rel_l2(torch, a[k], b[k]), k) for k in b)
+
+    if rank == 0:
+        (ref_go,), (plain_go,) = runners("cuda", 1), runners("plain", 1)
+        half_go, plain_half_go = runners("cuda", world), runners("plain", world)
+    atol, rtol = TRAIN_SCALAR_TOL
+    out["invariant"] = {}
+    with deterministic(torch):
+        cur = create_train_state(G, d1, Gs)
+        for name, opt in PHASES:
+            before = copy.deepcopy(cur) if rank == 0 else None
+            ck.reset_launches()
+            cur, sk = go[name](cur)
+            torch.cuda.synchronize()
+            got = {"launches": dict(ck.launches)}
+            if rank == 0:
+                plain = mean_m([plain_go], name, opt, before)
+                if name == "g_main":
+                    halves = mean_m(half_go, name, opt, before)
+                    plain_halves = mean_m(plain_half_go, name, opt, before)
+                ck.reset_launches()
+                ref, sp = ref_go[name](before)
+                torch.cuda.synchronize()
+                got["ref_launches"] = dict(ck.launches)
+                got["bad_scalars"] = [k for k, v in sp.items() if not abs(
+                    sk[k].item() - v.item()) <= atol + rtol * abs(v.item())]
+                m_k = {k: v / world for k, v in getattr(cur, opt).m.items()}
+                m_p = getattr(ref, opt).m
+                got["worst"] = worst_of(m_k, m_p)
+                got["kernel_vs_plain_12"] = worst_of(m_p, plain)
+                if name == "g_main":
+                    got["halves_worst"] = worst_of(halves, m_p)
+                    got["plain_halves_worst"] = worst_of(plain_halves, plain)
+                    got["vs_halves_worst"] = worst_of(m_k, halves)
+                    del halves, plain_halves
+                del before, ref, plain
+            out["invariant"][name] = got
+    del d1, step, cur, go
+    if rank == 0:
+        del ref_go, plain_go, half_go, plain_half_go
+    marks.append(("invariant", time.perf_counter()))
+
+    # (b2) the production setting (the snapshot's D, its minibatch stddev
+    # on, each rank's own draws): one iteration, then the replicas' bytes
+    cfg = TrainConfig(**TRAIN_CONFIG)
+    step = make_train_step(G, D, lpips, cfg, device="cuda", group=group)
+    state = create_train_state(G, D, Gs)
+    batch = step.phases["to_device"](local)
+    gen = torch.Generator("cuda").manual_seed(step_seed(1000, rank))
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t = time.perf_counter()
+    state, scalars = step(state, batch, gen, LRATE, LRATE, GS_BETA, do_g_reg=True,
+                          do_d_reg=True)
+    torch.cuda.synchronize()
+    out["production"] = dict(seconds=time.perf_counter() - t, launches=dict(ck.launches),
+                             scalars={k: v.item() for k, v in scalars.items()})
+    out["production"]["identical"] = parallel.replicas_identical(
+        list(state_tensors(state).values()))
+    t = time.perf_counter()
+    state, _ = step(state, batch, gen, LRATE, LRATE, GS_BETA, do_g_reg=True, do_d_reg=True)
+    torch.cuda.synchronize()
+    out["production"]["seconds_second"] = time.perf_counter() - t
+    del state, step, batch, G, D, Gs, lpips
+    torch.cuda.empty_cache()
+    marks.append(("production", time.perf_counter()))
+
+    # (d) GsSampler over the ranks: rank 0 runs, the others serve
+    sampler = GsSampler(NETWORK, minibatch_size=DP_SAMPLER_MB, device="cuda")
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    if rank == 0:
+        try:
+            images = sampler.run(latents)
+        finally:
+            sampler.close()
+        np.save(os.path.join(out_dir, "images.npy"), images)
+    else:
+        sampler.serve()
+    torch.cuda.synchronize()
+    out["sampler_launches"] = dict(ck.launches)
+    marks.append(("sampler", time.perf_counter()))
+    out["seconds"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    return out
+
+
+def counted_training_loop(launches_dir, **kwargs):
+    """The training loop as ``submit_run``'s run function, which then writes
+    this rank's kernel launch counts to ``launches_dir/rank<r>.json``."""
+    import torch
+    from inclusivegan_torch import parallel
+    from inclusivegan_torch.ops import cuda_kernels as ck
+    from inclusivegan_torch.training.training_loop import training_loop
+    ck.reset_launches()
+    training_loop(**kwargs)
+    torch.cuda.synchronize()
+    with open(os.path.join(launches_dir, f"rank{parallel.rank()}.json"), "w") as f:
+        json.dump(dict(ck.launches), f)
+
+
+def dp_loop(np, torch, G, D, tmp, failures):
+    """Phase 16 (c): ``submit_run`` of the loop that ``run_training
+    --num-gpus 2`` submits, on two gloo ranks that share the card, for 4
+    iterations with one IMLE rebuild of 600 candidates; then ``run_training
+    --num-gpus 2`` on this one-card machine raising before a run dir."""
+    from inclusivegan_torch import run_training
+    from inclusivegan_torch.utils.run_harness import submit_run
+    data_dir = os.path.join(tmp, "data")
+    write_loop_dataset(np, data_dir, 128, num=DP_DATA_SIZE)
+    flags = ["--num-gpus", str(DP_WORLD), "--data-size", str(DP_DATA_SIZE),
+             "--num-samples-factor", str(DP_SAMPLES_FACTOR)]
+    # the command line's kwargs as a machine with two cards would submit them
+    with mock.patch.object(run_training, "check_devices", lambda *a: None):
+        sc, fn, kw = loop_kwargs(data_dir, os.path.join(tmp, "loop"), flags)
+    counts_dir = os.path.join(tmp, "launches")
+    os.makedirs(counts_dir)
+    kw = dict(kw, device="cuda:0", smoke_test_max_iters=DP_ITERS, launches_dir=counts_dir)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    submit_run(sc, "chip_smoke.counted_training_loop", **kw)
+    secs = time.perf_counter() - t
+    run_dir, lines = read_run_log(sc.run_dir_root)
+    check_loop_run(run_dir, f"submit_run of run_training --num-gpus {DP_WORLD} on "
+                   f"{DP_WORLD} gloo ranks sharing the card, {DP_ITERS} iterations, "
+                   f"{secs:.1f} s", failures)
+    files = sorted(os.listdir(run_dir))
+    single = {"_finished.txt", "arb-reals.png", "log.txt", "network-final.pkl", "run.txt",
+              "stats.jsonl", "submit_config.pkl", "submit_config.txt",
+              "random_projector_mat_49152to512.npy"}
+    extra = [f for f in files if f not in single and not f.startswith("events.")]
+    replicas = [ln for ln in lines if ln.startswith("replicas: ")]
+    log(f"run dir {os.path.basename(run_dir)}: {files}; {replicas}")
+    if extra or "-2dev-" not in run_dir or not set(single) <= set(files):
+        failures.append(f"the two-rank run dir holds other files: {files}")
+    if replicas != [f"replicas: {DP_WORLD} ranks, G, D, Gs and Adam moments identical"]:
+        failures.append("the two ranks' final replicas differ")
+    if sum(ln.startswith("Training for") for ln in lines) != 1:
+        failures.append("a rank other than 0 wrote to the log")
+    per_phase = expected_launches(G, D)
+    g_regs = len(range(0, DP_ITERS, TRAIN_CONFIG["G_reg_interval"]))
+    d_regs = len(range(0, DP_ITERS, TRAIN_CONFIG["D_reg_interval"]))
+    steps = {k: DP_ITERS * (per_phase["g_main"][k] + per_phase["d_main"][k])
+             + g_regs * per_phase["g_reg"][k] + d_regs * per_phase["d_reg"][k]
+             for k in KERNELS}
+    batches = math.ceil(DP_DATA_SIZE * DP_SAMPLES_FACTOR / IMLE_CONFIG["candidate_batch_size"])
+    rebuild = forward_launches(G, batches)
+    launches = {}
+    for r in range(DP_WORLD):
+        with open(os.path.join(counts_dir, f"rank{r}.json")) as f:
+            launches[r] = json.load(f)
+        want = {k: v + (rebuild.get(k, 0) if r == 0 else 0) for k, v in steps.items()}
+        check_launches(f"the loop on rank {r} (the rebuild on rank 0 alone)", launches[r],
+                       want, failures)
+    refused = os.path.join(tmp, "refused")
+    try:
+        run_training.main(["--data-dir", data_dir, "--dataset", LOOP_DATASET,
+                           "--result-dir", refused] + CLI_FLAGS + ["--num-gpus", "2"])
+        failures.append("run_training --num-gpus 2 ran on a one-card machine")
+    except RuntimeError as e:
+        log(f"run_training --num-gpus 2 on {torch.cuda.device_count()} card: raised "
+            f"'{e}'; run dir made: {os.path.exists(refused)}")
+        if os.path.exists(refused):
+            failures.append("run_training --num-gpus 2 made a run dir before raising")
+    return launches, secs
+
+
+def data_parallel_phase(np, torch, ck):
+    """Phase 16. Returns the launch counts of each of its paths."""
+    import torch.multiprocessing as mp
+    from inclusivegan_torch.metrics.metric_base import GsSampler
+    phase(f"16 data parallelism (budget {DP_BUDGET_S} s)")
+    t_phase = time.time()
+    failures = []
+    paths = {}
+    nets = dp_networks(torch)
+    G, D = nets[:2]
+    paths["nccl_world1_iteration"], secs_a = nccl_world_one(np, torch, ck, nets, failures)
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        latents = np.random.default_rng(16).standard_normal(
+            (DP_IMAGES, G.mapping.latent_size), dtype=np.float32)
+        t = time.perf_counter()
+        mp.start_processes(dp_rank, args=(DP_WORLD, os.path.join(tmp, "init"), tmp, latents),
+                           nprocs=DP_WORLD, start_method="spawn")
+        spawn_s = time.perf_counter() - t
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        expected = expected_launches(G, D)
+        atol, rtol = TRAIN_SCALAR_TOL
+        log(f"the ranks' backends, derived from two ranks on cuda:0: "
+            f"{[r['backend'] for r in ranks]}")
+        if any(r["backend"] != "gloo" for r in ranks):
+            failures.append("two ranks sharing the card did not derive gloo")
+        inv0 = ranks[0]["invariant"]
+        for name, _opt in PHASES:
+            got = inv0[name]
+            worst, where = got["worst"]
+            line = (f"invariant_rng, stddev off, {DP_WORLD} gloo ranks x {TRAIN_MB} against 1 x "
+                    f"{DP_WORLD * TRAIN_MB}, {name}: scalars "
+                    f"{'agree' if not got['bad_scalars'] else 'DISAGREE ' + str(got['bad_scalars'])}"
+                    f" (|d| <= {atol:g} + {rtol:g}|ref|); half the ranks' summed gradient, "
+                    f"largest relative L2 error {worst:.3e} ({where})")
+            # the kernels at batch 12 against their plain versions, as
+            # phase 9 at 6; the ranks against 12 at phase 9's limit, but in
+            # G main, where the plain path's own split of 12 into two halves
+            # of 6 moves a gradient past that limit, against the kernel
+            # path's halves at the limit and no farther from 12 than the
+            # plain path's halves plus the limit
+            kp, kp_where = got["kernel_vs_plain_12"]
+            line += (f"; the kernel path of 1 x 12 against the plain path of 1 x 12: "
+                     f"{kp:.3e} ({kp_where})")
+            ok = kp <= TRAIN_GRAD_REL_L2
+            if name == "g_main":
+                ctl, ctl_where = got["halves_worst"]
+                pctl, pctl_where = got["plain_halves_worst"]
+                own, own_where = got["vs_halves_worst"]
+                line += (f"; two halves of {TRAIN_MB} in one process from 1 x 12: kernel "
+                         f"path {ctl:.3e} ({ctl_where}), plain path {pctl:.3e} "
+                         f"({pctl_where}); the ranks against the kernel path's halves "
+                         f"{own:.3e} ({own_where}) (limit {TRAIN_GRAD_REL_L2:g}; against "
+                         f"12, the plain path's halves plus it)")
+                ok = (ok and own <= TRAIN_GRAD_REL_L2
+                      and worst <= pctl + TRAIN_GRAD_REL_L2)
+            else:
+                line += f" (limit {TRAIN_GRAD_REL_L2:g})"
+                ok = ok and worst <= TRAIN_GRAD_REL_L2
+            log(line + f"; launches rank 0 {got['launches']}, rank 1 "
+                f"{ranks[1]['invariant'][name]['launches']}, one process of 12 "
+                f"{got['ref_launches']}")
+            if got["bad_scalars"] or not ok:
+                failures.append(f"two ranks against one process, {name}: disagree")
+            if any(r["invariant"][name]["launches"] != got["ref_launches"] for r in ranks):
+                failures.append(f"two ranks against one process, {name}: launches differ")
+        iteration = {k: sum(expected[p][k] for p, _ in PHASES) for k in KERNELS}
+        for r in ranks:
+            prod = r["production"]
+            log(f"rank {r['rank']}, production iteration (stddev on, own draws): "
+                f"replicas identical {prod['identical']}; {prod['seconds']:.4f} s, then "
+                f"{prod['seconds_second']:.4f} s (host clock; gloo's host copies of every "
+                f"collective, two ranks sharing one card: not a data-parallel time)")
+            check_launches(f"rank {r['rank']} production iteration", prod["launches"],
+                           iteration, failures)
+            if not prod["identical"]:
+                failures.append(f"rank {r['rank']}: the replicas differ after an iteration")
+            paths[f"gloo_rank{r['rank']}_iteration"] = prod["launches"]
+        if ranks[0]["production"]["scalars"] != ranks[1]["production"]["scalars"]:
+            failures.append("the ranks' averaged scalars differ")
+
+        one = GsSampler(NETWORK, minibatch_size=DP_SAMPLER_MB, device="cuda").run(latents)
+        two = np.load(os.path.join(tmp, "images.npy"))
+        levels, frac = compare_images(np, two, one)
+        log(f"GsSampler over {DP_WORLD} ranks against 1, {DP_IMAGES} images in minibatches "
+            f"of {DP_SAMPLER_MB}: max |diff| {levels} levels, {frac:.4%} of values differ "
+            f"(limit {DP_IMG_MAX_LEVELS} level)")
+        if two.shape != one.shape or levels > DP_IMG_MAX_LEVELS:
+            failures.append("the sampler over two ranks disagrees with one rank")
+        per_rank = forward_launches(G, DP_IMAGES // DP_SAMPLER_MB)
+        for r in ranks:
+            check_launches(f"GsSampler rank {r['rank']}", r["sampler_launches"],
+                           dict(per_rank, bias_lrelu_grad=0, upfirdn2d_transposed=0),
+                           failures)
+            paths[f"gloo_rank{r['rank']}_sampler"] = r["sampler_launches"]
+        log(f"the two gloo ranks of (b) and (d), spawned: {spawn_s:.1f} s; in each rank "
+            f"{[r['seconds'] for r in ranks]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        loop_launches, loop_s = dp_loop(np, torch, G, D, tmp, failures)
+        for r, counts in loop_launches.items():
+            paths[f"gloo_rank{r}_training_loop"] = counts
+        del G, D
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.time() - t_phase
+    log(f"phase 16 took {secs:.1f} s (budget {DP_BUDGET_S} s)")
+    log("phase 16 readings: " + json.dumps(dict(
+        nccl_world1_seconds_per_iteration=secs_a, gloo_spawned_seconds=spawn_s,
+        gloo_iteration_seconds={r["rank"]: [r["production"]["seconds"],
+                                            r["production"]["seconds_second"]]
+                                for r in ranks},
+        loop_seconds=loop_s, seconds=secs)))
+    if failures:
+        raise RuntimeError("phase 16: " + "; ".join(failures))
+    if secs >= DP_BUDGET_S:
+        raise RuntimeError(f"phase 16 took {secs:.1f} s, over its {DP_BUDGET_S} s budget")
+    return paths
+
+
 def main() -> int:
     import atexit
     import numpy as np
@@ -3164,6 +3680,11 @@ def main() -> int:
         # are under launches_by_path
         r["launches_by_path"].update({f"retrieval {path}": counts[r["name"]]
                                       for path, counts in retrieval_launches.items()})
+    gc.collect()
+    dp_launches = data_parallel_phase(np, torch, ck)
+    for r in records:
+        r["launches_by_path"].update({f"data_parallel {path}": counts[r["name"]]
+                                      for path, counts in dp_launches.items()})
     log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)

@@ -9,6 +9,15 @@ synthesis noise of each batch comes from the sampler's ``torch.Generator``
 (JAX's stream cannot be reproduced), or from ``noise_fn`` where a test hands
 in the JAX package's draws.
 
+Inside a ``torch.distributed`` process group the sampler's ``run`` is split
+over the ranks, as the JAX package shards it over its mesh: rank 0 runs the
+metric and broadcasts each call's latents; each minibatch (a multiple of
+the ranks) is cut into one slice per rank; every rank draws the whole
+minibatch's noise from the same seeded generator and keeps its slice, so
+that a sample's noise does not depend on the number of ranks; the uint8
+images are gathered on rank 0. The other ranks serve those calls
+(``GsSampler.serve``) until rank 0's metric ends, and write nothing.
+
 ``MetricBase.run`` caches real statistics under ``INCLUSIVEGAN_CACHE``
 (default ``~/.cache/inclusivegan_torch``), keyed by the md5 of the evaluation
 arguments; recovers the dataset and mirror augmentation from the run dir
@@ -24,6 +33,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..snapshot import load_snapshot
 from ..utils.registry import get_obj_by_name
 
@@ -43,12 +53,14 @@ def to_uint8(images: torch.Tensor) -> torch.Tensor:
 
 
 class GsSampler:
-    """Batched eval-mode sampler of a snapshot's Gs on one device.
+    """Batched eval-mode sampler of a snapshot's Gs, on one device or split
+    over the ranks of the process group.
 
     ``truncation_psi`` None samples without truncation. ``noise_fn``, given
     a batch size, returns that batch's synthesis noise dict
     ({"noise<i>": [B, 1, h, w]}); by default it is drawn from a generator
-    seeded with ``seed``."""
+    seeded with ``seed``. Over several ranks the minibatch is rounded down
+    to a multiple of them (to at least one each), as in the JAX package."""
 
     def __init__(self, network_pkl: str, minibatch_size: int = 32,
                  truncation_psi: Optional[float] = None, seed: int = 1000,
@@ -56,6 +68,8 @@ class GsSampler:
                  noise_fn: Optional[Callable[[int], Dict[str, torch.Tensor]]] = None):
         self.device = torch.device(device)
         self.G = load_snapshot(network_pkl, device=self.device)
+        self.world, self.rank = parallel.world_size(), parallel.rank()
+        minibatch_size = max(self.world, minibatch_size // self.world * self.world)
         self.minibatch = minibatch_size
         self.latent_size = self.G.mapping.latent_size
         self.label_size = self.G.mapping.label_size
@@ -67,14 +81,20 @@ class GsSampler:
             lambda bs: self.G.synthesis.draw_noise(bs, generator))
 
     def _sample(self, z: torch.Tensor) -> torch.Tensor:
+        """uint8 images of a minibatch of latents; over several ranks, this
+        rank's slice of it, gathered on rank 0 (None on the others)."""
+        noise = self._noise_fn(z.shape[0])
+        if self.world > 1:
+            m = z.shape[0] // self.world
+            at = slice(self.rank * m, (self.rank + 1) * m)
+            z, noise = z[at], {k: v[at] for k, v in noise.items()}
         labels = torch.zeros((z.shape[0], self.label_size), device=self.device)
-        return to_uint8(self.G(z, labels, truncation_psi=self._psi,
-                               noise=self._noise_fn(z.shape[0]), randomize_noise=False))
+        img = to_uint8(self.G(z, labels, truncation_psi=self._psi, noise=noise,
+                              randomize_noise=False))
+        return parallel.gather_to_main(img) if self.world > 1 else img
 
-    def run(self, latents: np.ndarray) -> np.ndarray:
-        """latents [N, Z] -> uint8 images [N, C, H, W], in batches of
-        ``minibatch`` padded with zeros. The batches are queued on the card
-        and copied to the host once."""
+    def _run(self, latents: torch.Tensor):
+        """``run`` on latents on the device; None off rank 0."""
         outs = []
         bs = self.minibatch
         with torch.no_grad():
@@ -82,9 +102,39 @@ class GsSampler:
                 z = latents[i:i + bs]
                 n = z.shape[0]
                 if n < bs:
-                    z = np.concatenate([z, np.zeros((bs - n, z.shape[1]), z.dtype)])
-                outs.append(self._sample(torch.as_tensor(z, device=self.device))[:n])
-            return torch.cat(outs).cpu().numpy()
+                    z = torch.cat([z, z.new_zeros((bs - n, z.shape[1]))])
+                img = self._sample(z)
+                if img is not None:
+                    outs.append(img[:n])
+            return torch.cat(outs).cpu().numpy() if outs else None
+
+    def run(self, latents: np.ndarray) -> np.ndarray:
+        """latents [N, Z] -> uint8 images [N, C, H, W], in batches of
+        ``minibatch`` padded with zeros. The batches are queued on the card
+        and copied to the host once. Over several ranks, rank 0 calls it
+        and the others serve it."""
+        z = torch.as_tensor(np.ascontiguousarray(latents, np.float32), device=self.device)
+        if self.world > 1:
+            parallel.broadcast_([torch.tensor(z.shape, device=self.device)])
+            parallel.broadcast_([z])
+        return self._run(z)
+
+    def serve(self) -> None:
+        """On a rank other than 0: take part in each of rank 0's ``run``
+        calls until it calls ``close``."""
+        while True:
+            shape = torch.zeros(2, dtype=torch.int64, device=self.device)
+            parallel.broadcast_([shape])
+            if shape[0] == 0:
+                return
+            z = torch.empty(tuple(shape.tolist()), device=self.device)
+            parallel.broadcast_([z])
+            self._run(z)
+
+    def close(self) -> None:
+        """On rank 0: release the ranks that serve."""
+        if self.world > 1:
+            parallel.broadcast_([torch.zeros(2, dtype=torch.int64, device=self.device)])
 
     def random_images(self, num: int, seed: int = 0) -> Iterator[np.ndarray]:
         """Yields image chunks of ``max(minibatch, 1024)`` for ``num`` latents
@@ -146,8 +196,14 @@ class MetricBase:
                 dataset_args = {}
         t0 = time.time()
         sampler = GsSampler(network_pkl, minibatch_size=minibatch_size, device=device)
-        self._evaluate(sampler, dataset_args=dict(dataset_args), data_dir=data_dir,
-                       **eval_kwargs)
+        if sampler.rank != 0:
+            sampler.serve()
+            return {}
+        try:
+            self._evaluate(sampler, dataset_args=dict(dataset_args), data_dir=data_dir,
+                           **eval_kwargs)
+        finally:
+            sampler.close()
         self._eval_time = time.time() - t0
 
         result_str = self.get_result_str()

@@ -9,6 +9,10 @@ only, and ``--classifier-weights`` to ``mode_counts_*`` and ``KL*`` only.
 ``main`` switches TF32 off for cuDNN's convolutions and for matrix
 products, so that the Gs and the metrics' nets compute in float32 on the
 card, as in the JAX package; ``--device cpu`` evaluates on the CPU.
+``--num-gpus N`` evaluates on N ranks, one card each (N gloo CPU processes
+with ``--device cpu``): each Gs minibatch is split over the ranks, and rank
+0 runs the metrics on the gathered images and writes the run dir. More
+cards than are present raise before the run dir is made.
 
     python -m inclusivegan_torch.run_metrics --network PKL --data-dir DIR \\
         --dataset NAME --metrics fid30k,is50k,pr50k3,ppl_wend,ls \\
@@ -20,6 +24,7 @@ import argparse
 import torch
 
 from .metrics.metric_defaults import metric_args, metric_defaults
+from .parallel import check_devices
 from .utils.run_harness import SubmitConfig, submit_run
 
 
@@ -71,7 +76,7 @@ def _parse_comma_sep(s):
 
 def parse_args(argv=None) -> dict:
     parser = argparse.ArgumentParser(
-        description="Run StyleGAN2 metrics (PyTorch/CUDA port, one card). Computes "
+        description="Run StyleGAN2 metrics (PyTorch/CUDA port). Computes "
         "in float32: TF32 is switched off for convolutions and matrix products.")
     parser.add_argument("--result-dir", default="results", metavar="DIR")
     parser.add_argument("--network", dest="network_pkl", required=True)
@@ -81,8 +86,8 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--dataset", required=True)
     parser.add_argument("--data-dir", required=True)
     parser.add_argument("--num-gpus", "--num-devices", dest="num_devices", type=int,
-                        default=1, metavar="N", help="1 only: more cards are not "
-                        "ported yet")
+                        default=1, metavar="N", help="ranks, one CUDA card each "
+                        "(CPU processes with --device cpu)")
     parser.add_argument("--mirror-augment", default=False, type=_str_to_bool,
                         metavar="BOOL", help="mirror-augment the reals, so that their "
                         "statistics match an augmented training run")
@@ -100,9 +105,8 @@ def parse_args(argv=None) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.pop("num_devices") > 1:
-        raise NotImplementedError("--num-gpus over 1: evaluation on more than one card "
-                                  "is not ported yet (ROADMAP.md, queue 1 item 6)")
+    num_devices = args.pop("num_devices")
+    check_devices(num_devices, args["device"])
     metrics = metric_args(args.pop("metrics"))
     # float32 as in the JAX package: torch's default lets cuDNN convolve in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -110,6 +114,7 @@ def main(argv=None):
     sc = SubmitConfig()
     sc.run_dir_root = args.pop("result_dir")
     sc.run_desc = "run_metrics"
+    sc.num_devices = num_devices
     return submit_run(sc, "inclusivegan_torch.run_metrics.run", metrics=metrics, **args)
 
 

@@ -2,7 +2,7 @@
 ``run_training.py`` and its ``run()``: the same config table (config-e* and
 config-f; config-a to -d refused as there), the same run-dir description,
 and the same keyword arguments for the loop, which it submits as
-``inclusivegan_torch.training.training_loop.training_loop`` on one CUDA card
+``inclusivegan_torch.training.training_loop.training_loop`` on CUDA cards
 (``--device cpu`` trains on the CPU).
 
 ``main`` switches TF32 off for cuDNN's convolutions and for matrix products
@@ -10,13 +10,15 @@ before anything loads, so that the card computes in float32 as the JAX
 package does; the IMLE retrieval relies on it. ``--dtype bfloat16`` computes
 G, D and the LPIPS trunk in bfloat16 from a fresh init (the JAX package's
 float32 islands kept). ``--metrics`` takes the registry's names (default
-``none``) and runs them at every network snapshot; an unknown name raises
-before the run starts. ``--knn-backend`` picks the IMLE retrieval (exact on
-the card, the host DCI index, or ``auto``: exact while the candidate
-features fit its budget); ``--invariant-rng true`` keys every random draw
-by the global example index. ``--num-gpus`` over 1 raises
-``NotImplementedError`` before the run starts (``ROADMAP.md`` queue 1 item
-6).
+``fid30k``, as in the JAX CLI; ``none`` for no metric) and runs them at
+every network snapshot; an unknown name raises before the run starts.
+``--knn-backend`` picks the IMLE retrieval (exact on the card, the host DCI
+index, or ``auto``: exact while the candidate features fit its budget);
+``--invariant-rng true`` keys every random draw by the global example
+index. ``--num-gpus N`` trains data-parallel on N cards, one process each
+(NCCL), at a global minibatch of N times ``--minibatch-gpu``, in a run dir
+whose name ends ``-Ndev``; more cards than are present raise before the run
+dir is made. ``--device cpu --num-gpus N`` runs N gloo ranks on the CPU.
 
 The CelebA production run (``scripts/run_celeba_quality_loop.sh``):
 
@@ -34,6 +36,7 @@ import sys
 import torch
 
 from .metrics.metric_defaults import metric_args, metric_defaults
+from .parallel import check_devices
 from .utils.easydict import EasyDict
 from .utils.run_harness import SubmitConfig, submit_run
 
@@ -44,13 +47,6 @@ _valid_configs = [
     "config-e-Gresnet-Dorig", "config-e-Gresnet-Dskip",
     "config-e-Gresnet-Dresnet",
 ]
-
-
-def _refuse_unported(num_devices):
-    if num_devices > 1:
-        raise NotImplementedError(f"--num-gpus {num_devices}: training on more than "
-                                  "one card is not ported yet (ROADMAP.md, queue 1 "
-                                  "item 6)")
 
 
 def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
@@ -64,7 +60,7 @@ def run(dataset, data_dir, result_dir, config_id, num_devices, gamma,
         network_snapshot_ticks=None, invariant_rng=False,
         enable_profiler=False, g_loss_batched=None, lpips_norm=None,
         seed=None, device="cuda"):
-    _refuse_unported(num_devices)
+    check_devices(num_devices, device)
     metrics = metric_args(metrics)
     train = EasyDict()
     G = EasyDict(init_mul=init_mul)
@@ -190,7 +186,7 @@ def _parse_comma_sep(s):
 def parse_args(argv=None) -> dict:
     """The command line as ``run()``'s keyword arguments."""
     parser = argparse.ArgumentParser(
-        description="Train StyleGAN2 with IMLE (PyTorch/CUDA port, one card). "
+        description="Train StyleGAN2 with IMLE (PyTorch/CUDA port). "
         "Computes in float32, TF32 is switched off for convolutions and matrix "
         "products, unless --dtype bfloat16.",
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -202,13 +198,14 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--init-mul", default=1.0, type=float)
     parser.add_argument("--num-gpus", "--num-devices", dest="num_devices",
                         default=1, type=int, metavar="N",
-                        help="1 only: more cards are not ported yet")
+                        help="data-parallel ranks, one CUDA card each (CPU "
+                             "processes with --device cpu)")
     parser.add_argument("--gamma", default=None, type=float)
     parser.add_argument("--mirror-augment", default=False, metavar="BOOL",
                         type=_str_to_bool)
-    parser.add_argument("--metrics", default="none", type=_parse_comma_sep,
-                        help="none (default) or comma-separated registry names, "
-                             "run at every network snapshot: "
+    parser.add_argument("--metrics", default="fid30k", type=_parse_comma_sep,
+                        help="comma-separated registry names (default fid30k) or "
+                             "none, run at every network snapshot: "
                              + ", ".join(metric_defaults))
     parser.add_argument("--minibatch-gpu", metavar="N", default=6, type=int)
     parser.add_argument("--data-size", metavar="N", default=30000, type=int)

@@ -172,15 +172,18 @@ def func_proj_dim(init_proj_dim: Optional[int], data_size: int,
 
 
 def load_or_create_projector(image_dim: int, proj_dim: int,
-                             cache_dir: str = ".") -> np.ndarray:
+                             cache_dir: Optional[str] = ".") -> np.ndarray:
     """A persistent random projector matrix, cached to .npy so that a resumed
-    run retrieves in the same space."""
-    path = os.path.join(cache_dir, f"random_projector_mat_{image_dim}to{proj_dim}.npy")
-    if os.path.isfile(path):
+    run retrieves in the same space. With ``cache_dir`` None it is drawn
+    and not written (a rank that does not write the run dir)."""
+    name = f"random_projector_mat_{image_dim}to{proj_dim}.npy"
+    path = os.path.join(cache_dir, name) if cache_dir is not None else None
+    if path is not None and os.path.isfile(path):
         return np.load(path)
     projector = np.random.normal(
         0.0, 1.0 / float(proj_dim), size=(image_dim, proj_dim)).astype(np.float64)
-    np.save(path, projector)
+    if path is not None:
+        np.save(path, projector)
     return projector
 
 
@@ -199,7 +202,7 @@ class IMLEOrchestrator:
                  num_comp_indices: int = 3, num_simp_indices: int = 15,
                  num_levels: int = 2, seed: int = 0,
                  drange_data=(0, 255), drange_net=(-1, 1),
-                 projector_cache_dir: str = ".", knn_backend: str = "auto",
+                 projector_cache_dir: Optional[str] = ".", knn_backend: str = "auto",
                  device="cuda"):
         if knn_backend not in ("auto", "exact", "dci"):
             raise ValueError(f"unknown knn_backend {knn_backend!r}")
@@ -402,6 +405,21 @@ class IMLEOrchestrator:
         if verbose:
             print(f"{backend} retrieval done: mean 1-NN dist "
                   f"{nearest_dists.mean():.4f}, staleness now {self.staleness}")
+
+    def selection(self) -> dict:
+        """What a rebuild sets (``_select``'s arrays and threshold), with the
+        staleness and the state of the host stream it draws from: what a
+        rank that did not rebuild needs to assemble the same batches."""
+        return dict(selected_latents=self.selected_latents,
+                    selected_dists=self.selected_dists, dist_thres=self.dist_thres,
+                    staleness=self.staleness, rng=self._rng.bit_generator.state)
+
+    def set_selection(self, sel: dict) -> None:
+        """Take another orchestrator's ``selection()``."""
+        sel = dict(sel)
+        self._rng.bit_generator.state = sel.pop("rng")
+        for k, v in sel.items():
+            setattr(self, k, v)
 
     def _row_filter(self, labels: np.ndarray, dists: np.ndarray) -> np.ndarray:
         """Minority-attribute or distance-percentile row selection."""

@@ -251,11 +251,14 @@ def draw_g_path_reg_invariant(G, pl_mb: int, ex: ExampleDraws,
 
 def g_path_reg(G, *, draws: Draws, pl_mean, label_size: int,
                pl_decay: float = 0.01, pl_weight: float = 2.0,
-               impl: str = "cuda"):
+               impl: str = "cuda", mean_fn=None):
     """Path-length regularizer. Returns (reg [pl_mb], new_pl_mean (no
     gradient), scalars, dlatent_batch_avg). The inner gradient is taken
     with respect to the dlatents with ``create_graph=True``; the penalty
-    centres on the updated mean, and the gradient flows through it."""
+    centres on the updated mean, and the gradient flows through it.
+    ``mean_fn`` takes the batch mean of the path lengths that feeds the
+    mean (default: this batch's); under ``invariant_rng`` on several ranks
+    it is the mean over every rank's examples, as in the JAX package."""
     pl_latents = draws["pl_latents"]
     pl_mb = pl_latents.shape[0]
     pl_labels = torch.zeros((pl_mb, label_size), device=pl_latents.device)
@@ -267,7 +270,8 @@ def g_path_reg(G, *, draws: Draws, pl_mean, label_size: int,
     (pl_grads,) = torch.autograd.grad((imgs.float() * pl_noise).sum(), dlatents,
                                       create_graph=True)
     pl_lengths = torch.sqrt(pl_grads.square().sum(dim=2).mean(dim=1))
-    pl_mean_new = pl_mean + pl_decay * (pl_lengths.mean() - pl_mean)
+    batch_mean = pl_lengths.mean() if mean_fn is None else mean_fn(pl_lengths)
+    pl_mean_new = pl_mean + pl_decay * (batch_mean - pl_mean)
     reg = (pl_lengths - pl_mean_new).square() * pl_weight
     scalars = {"Loss/pl_penalty": reg.mean(), "Loss/pl_lengths": pl_lengths.mean()}
     return reg, pl_mean_new.detach(), scalars, batch_avg

@@ -1,12 +1,22 @@
-"""One training iteration on one card, ported from
-``inclusivegan_tpu/training/train_step.py``.
+"""One training iteration, on one card or as one rank of a data-parallel
+group, ported from ``inclusivegan_tpu/training/train_step.py``.
 
 The four phases run in order, as in the JAX package: G main (the batched G
 loss), G path-length reg (lazy), D main followed by the Gs EMA, D R1 (lazy).
 Each takes the gradient of its loss with ``torch.autograd.grad``, then a
 shared-moment Adam step (``optimizer.adam_apply``) whose result is written
-into the state's modules in place. There is one device, so no gradient
-average across devices.
+into the state's modules in place.
+
+Data parallelism (``group``, a ``torch.distributed`` process group of which
+this process is one rank): the batch is this rank's slice of the global
+batch, and each phase reduces over the ranks, in one collective
+(``parallel.all_reduce_mean_``), what the JAX step reduces with
+``lax.pmean``: the gradients before Adam, summed as the JAX step's are (so
+every rank takes the same non-finite skip), and, averaged, the dlatent
+batch averages before they are folded, the new ``pl_mean`` and every loss
+scalar. Under ``invariant_rng`` the path-length penalty centres on the
+mean over all ranks' examples (``mean_fn``). Without a group nothing is
+reduced, and the step is the single-card one.
 
 Randomness: each phase draws from the ``torch.Generator`` the caller passes,
 through the ``draw_*`` functions below and in ``loss.py``, unless the caller
@@ -30,14 +40,18 @@ index (``loss.ExampleDraws``: four phase seeds from the generator, then
 per-example streams on the host, moved to the card in one copy), and
 batch-scalar draws are shared by the batch, so that a global batch computes
 the same on any number of cards. ``draw_train_step``'s ``example_offset``
-is the global index of this card's first example (0 on one card). As in the
-JAX package, it needs ``grad_accum_rounds == 1``.
+is the global index of this rank's first example (0 on one card; the step
+passes rank x local minibatch when it draws). As in the JAX package, it
+needs ``grad_accum_rounds == 1``. Without ``invariant_rng`` each rank draws
+from the generator its caller gives it, one per rank.
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel import all_reduce_mean, all_reduce_mean_
 from .loss import (ExampleDraws, d_main_loss, d_r1_reg, draw_d_main,
                    draw_d_main_invariant, draw_g_main, draw_g_main_invariant,
                    draw_g_path_reg, draw_g_path_reg_invariant, fold_dlatent_avg,
@@ -242,13 +256,16 @@ def _grads(loss, params):
 
 
 def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
-                    device="cuda", impl: str = "cuda"):
+                    device="cuda", impl: str = "cuda", group=None):
     """Returns ``train_step(state, batch, generator, g_lrate, d_lrate,
     gs_beta, *, do_g_reg, do_d_reg, rec_weight=None, draws=None)``, which
     runs one iteration and returns (state, scalars); the scalars are 0-d
     tensors on the card. ``G`` and ``D`` give the architecture; the
     parameters are the state's. ``impl`` is passed down to every op:
-    ``"plain"`` runs the kernels' plain versions, for comparison.
+    ``"plain"`` runs the kernels' plain versions, for comparison. ``group``
+    (a process group) reduces each phase over its ranks as the JAX step
+    does (gradients summed, the rest averaged), and the batch is then this
+    rank's slice.
 
     batch: reals_rec_1/2 [mb, C, H, W] uint8, latents_rec_1/2 [mb, Z],
     labels_rec_1/2 [mb, L], reals [2 mb, C, H, W] uint8, labels [2 mb, L];
@@ -289,7 +306,27 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
 
     def fold(state, avgs):
         assign(state.G, {"dlatent_avg": fold_dlatent_avg(
-            state.G.dlatent_avg.detach(), [a.detach() for a in avgs], beta)})
+            state.G.dlatent_avg.detach(), avgs, beta)})
+
+    def over_ranks(grads, avgs, scalars, *more):
+        """Over the group's ranks, in one collective: the phase's gradients
+        summed, and its dlatent batch averages, scalars and ``more``
+        tensors averaged (detached). Returns (grads, avgs, scalars). The sum
+        is the JAX step's gradient: inside its ``shard_map`` the gradient
+        with respect to the replicated parameters is already the devices'
+        sum, which its ``lax.pmean`` leaves as it is (``ROADMAP.md`` queue
+        3 item 13)."""
+        avgs = [a.detach() for a in avgs]
+        scalars = _detached(scalars)
+        if group is not None:
+            all_reduce_mean_([*avgs, *scalars.values(), *more], group,
+                             sums=grads.values())
+        return grads, avgs, scalars
+
+    rank_mean = None
+    if group is not None and cfg.invariant_rng:
+        def rank_mean(x):  # the pl_lengths mean over every rank's examples
+            return all_reduce_mean(x.mean(), group)
 
     def g_step(state: TrainState, batch, draws, g_lrate, rec_w):
         r1 = _process_reals(batch["reals_rec_1"], draws["flip1"],
@@ -314,9 +351,10 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
             g_loss = out.loss.mean()
             acc.add(_grads(g_loss, trainables), {**out.scalars, "Loss/G_total": g_loss})
             avgs += out.dlatent_batch_avgs  # folded in round order
-        state = g_adam(state, acc.grads(), g_lrate)
+        grads, avgs, scalars = over_ranks(acc.grads(), avgs, acc.mean_scalars())
+        state = g_adam(state, grads, g_lrate)
         fold(state, avgs)
-        return state, _detached(acc.mean_scalars())
+        return state, scalars
 
     def g_reg_step(state: TrainState, draws, g_lrate):
         trainables = g_trainables(params_of(state.G))
@@ -325,12 +363,14 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
             # pl_mean threads through the rounds in sequence
             reg, pl_mean, scalars, ba = g_path_reg(
                 state.G, draws=rd, pl_mean=pl_mean, label_size=label_size,
-                pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight, impl=impl)
+                pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight, impl=impl,
+                mean_fn=rank_mean)
             acc.add(_grads(reg.mean() * cfg.G_reg_interval, trainables), scalars)
             avgs.append(ba)
-        state = g_adam(state, acc.grads(), g_lrate)
+        grads, avgs, scalars = over_ranks(acc.grads(), avgs, acc.mean_scalars(), pl_mean)
+        state = g_adam(state, grads, g_lrate)
         fold(state, avgs)
-        return state._replace(pl_mean=pl_mean), _detached(acc.mean_scalars())
+        return state._replace(pl_mean=pl_mean), scalars
 
     def d_step(state: TrainState, batch, draws, d_lrate, gs_beta):
         reals = _process_reals(batch["reals"], draws["flip"], cfg.mirror_augment,
@@ -347,10 +387,11 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
             d_loss = loss.mean()
             acc.add(_grads(d_loss, params), {**scalars, "Loss/D_total": d_loss})
             avgs += round_avgs
-        state = d_adam(state, acc.grads(), d_lrate)
+        grads, avgs, scalars = over_ranks(acc.grads(), avgs, acc.mean_scalars())
+        state = d_adam(state, grads, d_lrate)
         fold(state, avgs)
         assign(state.Gs, update_gs(params_of(state.G), params_of(state.Gs), gs_beta))
-        return state._replace(step=state.step + 1), _detached(acc.mean_scalars())
+        return state._replace(step=state.step + 1), scalars
 
     def d_reg_step(state: TrainState, batch, draws, d_lrate):
         reals = _process_reals(batch["reals"], draws["flip"], cfg.mirror_augment,
@@ -360,8 +401,9 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
         for part in _split(dict(reals=reals, labels=batch["labels"]), rounds):
             reg, scalars = d_r1_reg(state.D, **part, gamma=cfg.gamma, impl=impl)
             acc.add(_grads(reg.mean() * cfg.D_reg_interval, params), scalars)
-        state = d_adam(state, acc.grads(), d_lrate)
-        return state, _detached(acc.mean_scalars())
+        grads, _, scalars = over_ranks(acc.grads(), [], acc.mean_scalars())
+        state = d_adam(state, grads, d_lrate)
+        return state, scalars
 
     def to_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -372,8 +414,10 @@ def make_train_step(G, D, lpips_params, cfg: TrainConfig = TrainConfig(),
         """One iteration: the reference's four session.run calls."""
         batch = to_device(batch)
         if draws is None:
-            draws = draw_train_step(G, batch["latents_rec_1"].shape[0], generator,
-                                    cfg, do_g_reg=do_g_reg, do_d_reg=do_d_reg,
+            mb = batch["latents_rec_1"].shape[0]
+            offset = mb * dist.get_rank(group) if group is not None else 0
+            draws = draw_train_step(G, mb, generator, cfg, do_g_reg=do_g_reg,
+                                    do_d_reg=do_d_reg, example_offset=offset,
                                     device=device)
         rec_w = cfg.NN_rec_lpips_weight if rec_weight is None else rec_weight
         scalars = {}

@@ -1,6 +1,6 @@
-"""The training loop on one card, ported from
+"""The training loop, ported from
 ``inclusivegan_tpu/training/training_loop.py``, with the same arguments and
-defaults.
+defaults, on one card or as one rank of a data-parallel process group.
 
 The run dir gets what the JAX loop writes: ``log.txt`` (through the run
 harness), ``stats.jsonl`` and TensorBoard events, the ``arb-reals.png`` /
@@ -9,7 +9,8 @@ harness), ``stats.jsonl`` and TensorBoard events, the ``arb-reals.png`` /
 (``checkpoints/step_%08d``) and ``network-final.pkl``, and, after each
 network snapshot, the line of each metric of ``metric_arg_list`` in
 ``metric-<name>.txt`` (a metric that fails is printed and training goes on);
-an ``abort.txt`` stops the run at the next outer iteration.
+an ``abort.txt`` stops the run at the next outer iteration (with several
+ranks, at the first one after the next tick).
 
 The control flow is the JAX loop's: the schedule per outer iteration of
 ``minibatch_repeats`` steps, the lazy-regularizer cadence from the running
@@ -40,9 +41,17 @@ accumulation (``grad_accum_rounds``, printed as in the JAX loop);
 generator then on the host; ``knn_backend`` picks the IMLE retrieval
 (``exact``, ``dci`` or ``auto``, routed as in the JAX package).
 
-Not ported yet, and refused before anything runs: more than one device
-(``ROADMAP.md`` queue 1). Each metric of ``metric_arg_list`` is built once
-before the networks, so that a bad argument raises first.
+Data parallelism: inside a ``torch.distributed`` process group (started by
+``utils.run_harness.submit_run``) ``num_devices`` is the group's world size,
+and the minibatch is global. Every rank runs the same seeded host streams
+and assembles the whole global batch, keeping its own slice, as the JAX
+loop shards it; each rank draws from its own step generator (the same one
+under ``invariant_rng``); the train step averages over the ranks. Rank 0
+alone runs the IMLE rebuild and broadcasts the selection, and alone writes
+the run dir (stats, events, image grids, snapshots, checkpoints); the other
+ranks serve its metrics' Gs samplers. At the end the ranks check that their
+replicas hold the same bytes. Each metric of ``metric_arg_list`` is built
+once before the networks, so that a bad argument raises first.
 """
 
 import os
@@ -52,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.dataset import Prefetcher, load_dataset
 from ..data.dataset_tool import load_celeba_attributes
 from ..metrics.metric_defaults import check_metric_args
@@ -98,14 +108,49 @@ def load_snapshot(path: str, device="cuda"):
                   for name, m in (("g_params", G), ("d_params", D), ("gs_params", Gs))}
 
 
-def _refuse_unported(num_devices, metric_arg_list):
-    """Raise NotImplementedError for more than one device (``ROADMAP.md``
-    queue 1 item 6), and build the metrics, before anything loads."""
-    if num_devices is not None and num_devices > 1:
-        raise NotImplementedError(f"num_devices={num_devices}: training on more "
-                                  "than one card is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 6)")
+def _check_run(num_devices, metric_arg_list):
+    """Before anything loads: ``num_devices`` must be the process group's
+    world size (1 outside a group), and every metric must build."""
+    world = parallel.world_size()
+    if num_devices is not None and num_devices != world:
+        raise ValueError(f"num_devices={num_devices}, but this process is one of "
+                         f"{world} ranks: start the ranks with "
+                         "utils.run_harness.submit_run (SubmitConfig.num_devices)")
     check_metric_args(metric_arg_list)
+
+
+class _Discard:
+    """Stats and events of a rank that does not write: every call does
+    nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: {}
+
+
+def _shard(batch, rank, world):
+    """This rank's contiguous slice of each array of the global batch."""
+    if world == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // world
+        out[k] = np.ascontiguousarray(v[rank * n:(rank + 1) * n])
+    return out
+
+
+def _broadcast_state(state):
+    """Rank 0's networks on every rank, so that the replicas start alike."""
+    parallel.broadcast_(t for m in (state.G, state.D, state.Gs)
+                        for t in m.state_dict().values())
+
+
+def step_seed(seed: int, rank: int) -> int:
+    """The seed of a rank's step generator: ``seed + 11`` on rank 0, as on
+    one card; a stream of its own, derived from both, on each other rank."""
+    if rank == 0:
+        return seed + 11
+    return int(np.random.SeedSequence(seed + 11, spawn_key=(rank,)).generate_state(
+        1, np.uint64)[0] >> 1)
 
 
 def training_loop(
@@ -172,7 +217,9 @@ def training_loop(
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to train "
                            "on the CPU")
-    _refuse_unported(num_devices, metric_arg_list)
+    _check_run(num_devices, metric_arg_list)
+    world, rank, main = parallel.world_size(), parallel.rank(), parallel.is_main()
+    group = torch.distributed.group.WORLD if parallel.active() else None
 
     # ------------------------------------------------------------ datasets
     # Both streams iterate in a fixed order: the IMLE cursor arithmetic
@@ -184,9 +231,9 @@ def training_loop(
     image_dim = int(np.prod(training_set.shape))
 
     run_dir = submit_config.run_dir if submit_config is not None else "."
-    stats = StatsCollector(run_dir)
-    events = EventWriter(run_dir)
-    ctx = RunContext(submit_config) if submit_config is not None else None
+    stats = StatsCollector(run_dir) if main else _Discard()
+    events = EventWriter(run_dir) if main else _Discard()
+    ctx = RunContext(submit_config) if submit_config is not None and main else None
     np.random.seed(seed)
 
     if image_snapshot_ticks is None:
@@ -194,10 +241,12 @@ def training_loop(
     if network_snapshot_ticks is None:
         network_snapshot_ticks = max(data_size // 1000 * 5, 1)
 
+    # every rank draws the grid, so that the data streams stay in step
     grid_size, grid_reals, grid_labels = setup_snapshot_image_grid(
         training_set, **grid_args)
-    misc.save_image_grid(grid_reals, os.path.join(run_dir, "arb-reals.png"),
-                         drange=training_set.dynamic_range, grid_size=grid_size)
+    if main:
+        misc.save_image_grid(grid_reals, os.path.join(run_dir, "arb-reals.png"),
+                             drange=training_set.dynamic_range, grid_size=grid_size)
 
     attr_names = None
     if attr_interesting is not None:
@@ -250,9 +299,11 @@ def training_loop(
         print(f"Resume lr rampup: 0 -> base over {resume_lrate_rampup_kimg:g}"
               f" kimg past {resume_kimg:.1f} (fresh Adam moments)")
 
+    _broadcast_state(state)
     print_layers(state.G, "G")
     print_layers(state.D, "D")
     print(f"device: {dev}")
+    print(f"devices: {world}")
 
     # ------------------------------------------------------------ IMLE
     imle = IMLEOrchestrator(
@@ -265,7 +316,7 @@ def training_loop(
         dist_thres_percentile=dist_thres_percentile,
         attr_interesting=attr_interesting, attr_names=attr_names,
         drange_data=training_set.dynamic_range, drange_net=drange_net,
-        projector_cache_dir=run_dir, seed=seed, device=dev)
+        projector_cache_dir=run_dir if main else None, seed=seed, device=dev)
     if imle_restore:
         imle.cursor = int(imle_restore.get("cursor", imle.cursor))
         imle.staleness = int(imle_restore.get("staleness", imle.staleness))
@@ -297,7 +348,7 @@ def training_loop(
     sched0 = training_schedule(cur_nimg=int(resume_kimg * 1000),
                                resolution_log2=training_set.resolution_log2,
                                **sched_args)
-    num_dev = 1
+    num_dev = world
     grad_accum_rounds = max(sched0.minibatch_size // num_dev // sched0.minibatch_gpu, 1)
     if grad_accum_rounds > 1:
         assert sched0.minibatch_size % (sched0.minibatch_gpu * num_dev) == 0, \
@@ -322,7 +373,7 @@ def training_loop(
         lpips_dtype=G_args.get("dtype"),
         invariant_rng=invariant_rng,
         donate_state=True)
-    train_step = make_train_step(G, D, lpips_params, cfg, device=dev)
+    train_step = make_train_step(G, D, lpips_params, cfg, device=dev, group=group)
 
     grid_latents = np.random.default_rng(seed + 17).standard_normal(
         (int(np.prod(grid_size)), G.mapping.latent_size), dtype=np.float32)
@@ -336,8 +387,10 @@ def training_loop(
     train_start_time = tick_start_time - resume_time
     running_mb_counter = 0
     # invariant_rng draws on the host: its generator lives there, so that
-    # reading the phase seeds does not wait for the card
-    step_gen = torch.Generator("cpu" if invariant_rng else dev).manual_seed(seed + 11)
+    # reading the phase seeds does not wait for the card; its seeds are the
+    # same on every rank, which offsets the examples by its rank
+    step_gen = torch.Generator("cpu" if invariant_rng else dev).manual_seed(
+        seed + 11 if invariant_rng else step_seed(seed, rank))
     iters_done = 0
     profiler = None
 
@@ -347,9 +400,9 @@ def training_loop(
         sole consumer of both dataset streams while it is open)."""
         r1, l1, z1, r2, l2, z2 = imle.next_rec_batch(training_set_rec, mb)
         reals, labels = training_set.get_minibatch_np(mb * 2)
-        return {"reals_rec_1": r1, "labels_rec_1": l1, "latents_rec_1": z1,
-                "reals_rec_2": r2, "labels_rec_2": l2, "latents_rec_2": z2,
-                "reals": reals, "labels": labels}
+        return _shard({"reals_rec_1": r1, "labels_rec_1": l1, "latents_rec_1": z1,
+                       "reals_rec_2": r2, "labels_rec_2": l2, "latents_rec_2": z2,
+                       "reals": reals, "labels": labels}, rank, world)
 
     prefetcher = None
     prefetch_mb = None
@@ -360,8 +413,14 @@ def training_loop(
             prefetcher.close()
             prefetcher = None
 
+    stop = False
     while cur_nimg < total_kimg * 1000:
-        if ctx is not None and ctx.should_stop():
+        # one rank reads abort.txt every iteration; several ranks read rank
+        # 0's at ticks, where the card has been waited for already, so that
+        # every rank stops at the same iteration and no iteration waits
+        if world == 1:
+            stop = ctx is not None and ctx.should_stop()
+        if stop:
             break
         sched = training_schedule(cur_nimg=cur_nimg,
                                   resolution_log2=training_set.resolution_log2,
@@ -373,6 +432,7 @@ def training_loop(
             sched.D_lrate *= ramp
         mb = sched.minibatch_size
         assert data_size % (mb * 2) == 0, (data_size, mb)
+        assert mb % world == 0, (mb, world)
 
         for _repeat in range(minibatch_repeats):
             run_G_reg = (lazy_regularization and
@@ -385,7 +445,12 @@ def training_loop(
                 # that the assembly reads (queued batches are dropped)
                 _stop_prefetcher()
                 t0 = time.time()
-                imle.rebuild(generate_images, training_set_rec)
+                if main:  # one rebuild, as on the JAX package's controller
+                    imle.rebuild(generate_images, training_set_rec)
+                if world > 1:
+                    sel = parallel.broadcast_object(imle.selection() if main else None)
+                    if not main:
+                        imle.set_selection(sel)
                 stats.report("Timing/dci_rebuild_sec", time.time() - t0)
 
             if prefetch_mb != mb:  # minibatch changed: the closure is stale
@@ -417,17 +482,17 @@ def training_loop(
             cur_nimg += mb
             running_mb_counter += 1
             iters_done += 1
-            if enable_profiler and iters_done == 8:
+            if enable_profiler and main and iters_done == 8:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else [])])
                 profiler.start()
-            if enable_profiler and iters_done == 16:
+            if enable_profiler and main and iters_done == 16:
                 profiler.stop()
                 os.makedirs(os.path.join(run_dir, "profile"), exist_ok=True)
                 profiler.export_chrome_trace(os.path.join(run_dir, "profile", "trace.json"))
                 profiler = None
-            if (iters_done % 8 == 0 or iters_done <= 2) and scalars:
+            if main and (iters_done % 8 == 0 or iters_done <= 2) and scalars:
                 # one copy of all the scalars instead of one wait per scalar
                 names = list(scalars)
                 values = torch.stack([scalars[k].float() for k in names]).cpu().tolist()
@@ -465,7 +530,7 @@ def training_loop(
             if ctx is not None:
                 ctx.update(cur_epoch=cur_nimg / 1000.0, max_epoch=total_kimg)
 
-            if cur_tick % image_snapshot_ticks == 0 or done:
+            if main and (cur_tick % image_snapshot_ticks == 0 or done):
                 t0 = time.time()
                 _save_image_snapshots(state, grid_latents, grid_size, imle, run_dir,
                                       cur_nimg, training_set, drange_net, seed, dev)
@@ -474,9 +539,10 @@ def training_loop(
                 path = os.path.join(run_dir,
                                     f"network-snapshot-{cur_nimg // 1000:06d}.pkl")
                 t0 = time.time()
-                misc.save_pkl(snapshot_dict(G, D, state), path)
+                if main:
+                    misc.save_pkl(snapshot_dict(G, D, state), path)
                 stats.report("Timing/snapshot_sec", time.time() - t0)
-                if save_full_checkpoints:
+                if save_full_checkpoints and main:
                     from .checkpoint import save_checkpoint
                     t0 = time.time()
                     save_checkpoint(
@@ -486,16 +552,30 @@ def training_loop(
                         step=cur_nimg)
                     stats.report("Timing/checkpoint_sec", time.time() - t0)
                 if metric_arg_list:
+                    parallel.barrier()  # the snapshot is on disk for every rank
                     t0 = time.time()
                     _run_metrics(metric_arg_list, path, dataset_args, data_dir, run_dir,
                                  mirror_augment, dev)
                     stats.report("Timing/metrics_sec", time.time() - t0)
+            if world > 1:
+                stop = parallel.broadcast_object(ctx is not None and ctx.should_stop())
 
     _stop_prefetcher()
     if profiler is not None:
         profiler.stop()
-    misc.save_pkl(snapshot_dict(G, D, state),
-                  os.path.join(run_dir, "network-final.pkl"))
+    if world > 1:
+        same = parallel.replicas_identical(
+            [t for m in (state.G, state.D, state.Gs) for t in m.state_dict().values()]
+            + [t for opt in (state.g_opt, state.d_opt) for t in (*opt.m.values(),
+                                                                  *opt.v.values())]
+            + [state.pl_mean])
+        print(f"replicas: {world} ranks, G, D, Gs and Adam moments "
+              f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError(f"the {world} ranks' replicas differ at the end of the run")
+    if main:
+        misc.save_pkl(snapshot_dict(G, D, state),
+                      os.path.join(run_dir, "network-final.pkl"))
     events.add_scalars(stats.flush(step=cur_nimg), step=cur_nimg)
     events.close()
     stats.close()

@@ -7,6 +7,16 @@ calls it with the keyword arguments; a crash writes ``<task>-error.txt``, and
 ``_finished.txt`` marks the end either way. ``RunContext`` writes ``run.txt``
 at start and stop and polls for an ``abort.txt`` in the run dir (a
 cooperative stop). Runs are local processes: there is no other target.
+
+With ``num_devices`` N over 1, the run dir is made once and N processes
+(``spawn``) run the function as the ranks of a ``torch.distributed``
+process group (``parallel.init_data_parallel``, initialized through a
+file in the run dir): rank r on ``cuda:<r>`` for the ``device`` "cuda"
+(NCCL), every rank on the named card for "cuda:K" (gloo), or the CPU
+(gloo, the calling process's intra-op threads shared out), each with the
+TF32 switches of the calling process. Rank 0 tees to
+``log.txt``; the other ranks print nothing. The ranks' return values stay
+in their processes: ``submit_run`` returns None.
 """
 
 import datetime
@@ -32,7 +42,7 @@ class SubmitConfig(EasyDict):
         self.run_desc = ""
         self.run_func_name = None
         self.run_func_kwargs = {}
-        self.num_devices = 1          # reference: num_gpus
+        self.num_devices = 1          # reference: num_gpus; ranks over 1
         self.print_info = False
         # populated by submit_run:
         self.run_id = None
@@ -76,11 +86,38 @@ def submit_run(submit_config: SubmitConfig, run_func_name: str, **run_func_kwarg
     with open(os.path.join(run_dir, "submit_config.txt"), "w") as f:
         f.write(pretty(submit_config) + "\n")
 
-    # --- run wrapper --------------------------------------------------------
-    logger = Logger(os.path.join(run_dir, "log.txt"), mode="w")
+    world = int(submit_config.num_devices or 1)
+    try:
+        if world == 1:
+            return _run_logged(submit_config, run_func_name, run_func_kwargs)
+        import torch
+        import torch.multiprocessing as mp
+        init_file = os.path.join(run_dir, ".dist_init")
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        # CPU ranks share out the caller's intra-op threads
+        threads = max(1, torch.get_num_threads() // world)
+        try:
+            mp.start_processes(_run_rank, args=(world, submit_config, run_func_name,
+                                                run_func_kwargs, init_file, tf32, threads),
+                               nprocs=world, start_method="spawn")
+        finally:
+            if os.path.exists(init_file):
+                os.remove(init_file)
+        return None
+    except Exception:
+        with open(os.path.join(run_dir, f"{submit_config.task_name}-error.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        open(os.path.join(run_dir, "_finished.txt"), "w").close()
+
+
+def _run_logged(submit_config, run_func_name, run_func_kwargs, ranks=""):
+    """The run function, its output teed to ``log.txt``."""
+    logger = Logger(os.path.join(submit_config.run_dir, "log.txt"), mode="w")
     start = time.time()
     try:
-        print(f"dnnlib: Running {run_func_name}() on localhost...")
+        print(f"dnnlib: Running {run_func_name}() on localhost{ranks}...")
         run_func = get_obj_by_name(run_func_name)
         result = run_func(submit_config=submit_config, **run_func_kwargs)
         print(f"dnnlib: Finished {run_func_name}() in "
@@ -88,12 +125,37 @@ def submit_run(submit_config: SubmitConfig, run_func_name: str, **run_func_kwarg
         return result
     except Exception:
         traceback.print_exc()
-        with open(os.path.join(run_dir, f"{submit_config.task_name}-error.txt"), "w") as f:
-            f.write(traceback.format_exc())
         raise
     finally:
-        open(os.path.join(run_dir, "_finished.txt"), "w").close()
         logger.close()
+
+
+def _run_rank(rank, world, submit_config, run_func_name, run_func_kwargs, init_file,
+              tf32, threads):
+    """One rank of a data-parallel run (a spawned process), with the TF32
+    switches of the process that started it and, on the CPU, ``threads``
+    intra-op threads."""
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import dist as pdist
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    device = run_func_kwargs.get("device", "cuda")
+    dev = pdist.init_data_parallel(rank, world, "file://" + os.path.abspath(init_file),
+                                   device=device)
+    if dev.type == "cpu":
+        torch.set_num_threads(threads)
+    kwargs = dict(run_func_kwargs, device=dev)
+    try:
+        if rank == 0:
+            _run_logged(submit_config, run_func_name, kwargs, f", {world} ranks")
+        else:
+            sys.stdout = open(os.devnull, "w")  # for the life of the process
+            get_obj_by_name(run_func_name)(submit_config=submit_config, **kwargs)
+    finally:
+        dist.destroy_process_group()
 
 
 class RunContext:

@@ -45,13 +45,13 @@ def test_run_metrics_cli_on_a_16px_snapshot(snapshot_16px, toy_dataset, tmp_path
 
 
 def test_run_metrics_cli_refuses_before_loading(tmp_path):
-    """An unknown name, or more than one card, raises before a run dir is
-    made."""
+    """An unknown name, or more cards than are present (none here), raises
+    before a run dir is made."""
     argv = ["--network", "missing.pkl", "--data-dir", str(tmp_path), "--dataset", "x",
             "--result-dir", str(tmp_path / "results")]
     with pytest.raises(ValueError, match="unknown metric"):
         run_metrics.main(argv + ["--metrics", "fid10k,pr50"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="2 ranks need 2 CUDA cards, and 0 are present"):
         run_metrics.main(argv + ["--metrics", "pr50k3", "--num-gpus", "2"])
     assert not (tmp_path / "results").exists()
 

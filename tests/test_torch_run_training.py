@@ -1,8 +1,9 @@
 """The port's training CLI against the JAX package's ``run_training.py``:
 the same flags parse to the same ``run()`` keyword arguments, and ``run()``
 submits the same loop arguments and run description; ``main`` switches TF32
-off before anything loads; ``--num-gpus`` over 1, not ported yet, raises
-``NotImplementedError`` before a run dir is made."""
+off before anything loads; ``--num-gpus`` over the cards present raises
+before a run dir is made (the data-parallel runs themselves are in
+``tests/test_torch_data_parallel.py``)."""
 
 import sys
 
@@ -81,19 +82,31 @@ def test_main_switches_tf32_off_before_the_run(monkeypatch, tmp_path):
 
 
 def test_metrics_default_to_none(monkeypatch, tmp_path):
-    """The JAX CLI defaults to fid30k; the port to none, so that a run
-    evaluates only the metrics it names."""
-    kw = _main_kwargs(run_training, ["--data-dir", str(tmp_path), "--dataset", "x"],
-                      monkeypatch)
-    assert kw["metrics"] == []
+    """Without --metrics a run evaluates fid30k, as the JAX CLI's does;
+    ``--metrics none`` evaluates nothing."""
+    argv = ["--data-dir", str(tmp_path), "--dataset", "x"]
+    assert _main_kwargs(run_training, argv, monkeypatch)["metrics"] == ["fid30k"]
+    assert _main_kwargs(run_training, argv + ["--metrics", "none"],
+                        monkeypatch)["metrics"] == []
+
+
+def test_default_flags_give_the_jax_clis_run_kwargs(monkeypatch, tmp_path):
+    """The required flags alone parse to the JAX CLI's ``run()`` keyword
+    arguments, its default metric among them."""
+    argv = ["--data-dir", str(tmp_path), "--dataset", "x"]
+    want = _main_kwargs(jax_run_training, argv, monkeypatch)
+    got = _main_kwargs(run_training, argv, monkeypatch)
+    assert got.pop("device") == "cuda"
+    assert got == want and want["metrics"] == ["fid30k"]
 
 
 def test_help_says_float32_and_metrics_none(capsys):
+    """The help names the default metric, fid30k, and ``none``."""
     with pytest.raises(SystemExit):
         run_training.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     assert "TF32 is switched off" in text
-    assert "none (default) or comma-separated registry names" in text
+    assert "comma-separated registry names (default fid30k) or none" in text
     assert "run at every network snapshot: mode_counts_24k, KL24k, fid30k" in text
     assert "activation dtype of G, D and the LPIPS trunk" in text
 
@@ -131,14 +144,21 @@ def test_invariant_rng_and_dci_flags_reach_the_loop(flags, key, value, monkeypat
     assert got["kwargs"] == want["kwargs"]
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--num-gpus", "2"], "queue 1 item 6"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--num-gpus", "2"], RuntimeError, "2 ranks need 2 CUDA cards, and 0 are present"),
+    (["--num-gpus", "0"], ValueError, "at least one"),
+    (["--device", "cuda:0", "--num-gpus", "2"], RuntimeError,
+     "device 'cuda:0' names card 0, and 0 CUDA cards are present"),
 ])
-def test_unported_flags_raise_before_the_run(flags, match, monkeypatch, tmp_path):
+def test_unported_flags_raise_before_the_run(flags, error, match, monkeypatch, tmp_path):
+    """More cards than are present, or a named card that is not (none
+    here), raise before a run dir is made: nothing moves to the CPU or to
+    fewer ranks."""
     monkeypatch.setattr(run_training, "submit_run",
                         lambda *a, **k: pytest.fail("a run was submitted"))
-    with pytest.raises(NotImplementedError, match=match):
-        run_training.main(["--data-dir", str(tmp_path), "--dataset", "x"] + flags)
+    with pytest.raises(error, match=match):
+        run_training.main(["--data-dir", str(tmp_path), "--dataset", "x",
+                           "--result-dir", str(tmp_path / "results")] + flags)
     assert not (tmp_path / "results").exists()
 
 

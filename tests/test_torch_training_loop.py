@@ -246,13 +246,18 @@ def test_bad_metric_arguments_raise_before_the_networks(toy_dataset, metric_args
                               data_dir=str(tmp_path / "no-data")))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(num_devices=2), "queue 1 item 6"),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(num_devices=2, device="cpu"), ValueError, "one of 1 ranks"),
+    (dict(num_devices=2, device="cuda"), RuntimeError, "CUDA is not available"),
 ])
-def test_unported_knobs_raise_before_the_networks(toy_dataset, kw, match):
+def test_unported_knobs_raise_before_the_networks(toy_dataset, kw, error, match,
+                                                   tmp_path):
+    """More devices than the process has raise before the dataset opens:
+    outside a process group the loop is one rank (``submit_run`` starts
+    the ranks), and without a card nothing moves to the CPU."""
     from inclusivegan_torch.training.training_loop import training_loop
-    with pytest.raises(NotImplementedError, match=match):
-        training_loop(**_args(toy_dataset, device="cpu", **kw))
+    with pytest.raises(error, match=match):
+        training_loop(**_args(toy_dataset, **dict(kw, data_dir=str(tmp_path / "no-data"))))
 
 
 KNOBS = {

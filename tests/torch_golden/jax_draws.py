@@ -2,10 +2,11 @@
 
 The port cannot reproduce JAX's PRNG streams, so every draw of the port's
 training code is an argument. These functions follow the ``random.split``
-chains of ``inclusivegan_tpu/training/train_step.py`` (one device: the
-phase key folded with device index 0), ``training/loss.py`` and
+chains of ``inclusivegan_tpu/training/train_step.py``, ``training/loss.py`` and
 ``models/stylegan2.py`` (style mixing in ``map_latents``/``apply``, per-layer
-noise in ``GSynthesis.apply``), and return numpy arrays in the layout of the
+noise in ``GSynthesis.apply``), on one device of the mesh (``device``:
+the phase key folded with its index, or under ``invariant_rng`` the
+global example index), and return numpy arrays in the layout of the
 port's ``draws`` dicts (``inclusivegan_torch/training/train_step.py``).
 ``to_torch`` turns them into tensors; ``flatten_draws`` and
 ``unflatten_draws`` (the port's) store them in an .npz and read them back.
@@ -105,14 +106,15 @@ def d_main(G, key, n):
     return {"mixing": mix, "noise": noise}
 
 
-def train_step(G, key, mb, batched=True, pl_minibatch_shrink=2):
+def train_step(G, key, mb, batched=True, pl_minibatch_shrink=2, device=0):
     """Every draw of the JAX ``make_train_step`` iteration with ``rng=key``
-    on a one-device mesh, in the port's layout."""
+    on mesh device ``device`` (of a one-device mesh by default), whose
+    minibatch is ``mb``, in the port's layout."""
     k1, k2, k3, k4 = random.split(key, 4)
     z = G.mapping.latent_size
 
-    def dev(k):  # train_step._device_rng on device 0
-        return random.fold_in(k, 0)
+    def dev(k):  # train_step._device_rng on this device
+        return random.fold_in(k, device)
 
     k_aug1, k_aug2, k_g, k_arb, _ = random.split(dev(k1), 5)
     g = {"flip1": _np(random.uniform(k_aug1, (mb, 1, 1, 1))).reshape(mb),
@@ -210,8 +212,8 @@ def _fold(keys, salt):
     return [random.fold_in(k, salt) for k in keys]
 
 
-def _global_keys(key, n):
-    return [random.fold_in(key, i) for i in range(n)]
+def _global_keys(key, n, start=0):
+    return [random.fold_in(key, i) for i in range(start, start + n)]
 
 
 def _stack(keys, draw):
@@ -242,21 +244,24 @@ def mixing_invariant(G, key, fwd_keys):
     return latents2, np.int64(cutoff)
 
 
-def train_step_invariant(G, key, mb, batched=True, pl_minibatch_shrink=2):
-    """Every draw of the JAX iteration with ``invariant_rng=True`` on a
-    one-device mesh (example keys folded from the global index)."""
+def train_step_invariant(G, key, mb, batched=True, pl_minibatch_shrink=2, device=0):
+    """Every draw of the JAX iteration with ``invariant_rng=True`` on mesh
+    device ``device``, whose minibatch is ``mb`` (example keys folded from
+    the global index, which starts at ``device`` times the device's
+    examples)."""
     k1, k2, k3, k4 = random.split(key, 4)
     z = G.mapping.latent_size
     k_aug1, k_aug2, k_g, k_arb, k_ex = random.split(k1, 5)
-    eks = _global_keys(k_ex, mb)
+    at = device * mb
+    eks = _global_keys(k_ex, mb, at)
     _, k_t, kg1, kg2, kg3, kg4, _ = random.split(k_g, 7)
     fwd = [_fold(eks, _EK_FWD_BASE + fid) for fid in range(4)]
     noise = [synthesis_noise_invariant(G, f) for f in fwd]
     if batched:
         noise = [{k: np.concatenate([n[k] for n in noise]) for k in noise[0]}]
-    g = {"flip1": _stack(_global_keys(k_aug1, mb), random.uniform),
-         "flip2": _stack(_global_keys(k_aug2, mb), random.uniform),
-         "arb_latents": _stack(_global_keys(k_arb, mb),
+    g = {"flip1": _stack(_global_keys(k_aug1, mb, at), random.uniform),
+         "flip2": _stack(_global_keys(k_aug2, mb, at), random.uniform),
+         "arb_latents": _stack(_global_keys(k_arb, mb, at),
                                lambda k: random.normal(k, (z,))),
          "t": _stack(_fold(eks, _EK_T), lambda k: random.uniform(k, (1,))),
          "mixing": [mixing_invariant(G, kk, f)
@@ -264,7 +269,7 @@ def train_step_invariant(G, key, mb, batched=True, pl_minibatch_shrink=2):
          "noise": noise}
     pl_mb = max(mb // pl_minibatch_shrink, 1)
     rng, k_ex = random.split(k2)
-    pl_eks = _global_keys(k_ex, pl_mb)
+    pl_eks = _global_keys(k_ex, pl_mb, device * pl_mb)
     _, _, kfwd, _ = random.split(rng, 4)
     res = G.synthesis.resolution
     g_reg = {"pl_latents": _stack(_fold(pl_eks, _EK_PL_Z),
@@ -275,10 +280,11 @@ def train_step_invariant(G, key, mb, batched=True, pl_minibatch_shrink=2):
              "noise": synthesis_noise_invariant(G, _fold(pl_eks, _EK_FWD_BASE + 1))}
     k_aug, k_d, k_arb, k_ex = random.split(k3, 4)
     n2 = 2 * mb
-    d_fwd = _fold(_global_keys(k_ex, n2), _EK_FWD_BASE)
-    d = {"flip": _stack(_global_keys(k_aug, n2), random.uniform),
-         "arb_latents": _stack(_global_keys(k_arb, n2), lambda k: random.normal(k, (z,))),
+    d_fwd = _fold(_global_keys(k_ex, n2, device * n2), _EK_FWD_BASE)
+    d = {"flip": _stack(_global_keys(k_aug, n2, device * n2), random.uniform),
+         "arb_latents": _stack(_global_keys(k_arb, n2, device * n2),
+                               lambda k: random.normal(k, (z,))),
          "mixing": mixing_invariant(G, k_d, d_fwd),
          "noise": synthesis_noise_invariant(G, d_fwd)}
     return {"g": g, "g_reg": g_reg, "d": d,
-            "d_reg": {"flip": _stack(_global_keys(k4, n2), random.uniform)}}
+            "d_reg": {"flip": _stack(_global_keys(k4, n2, device * n2), random.uniform)}}

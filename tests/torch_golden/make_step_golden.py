@@ -1,25 +1,31 @@
-"""Write ``tests/torch_golden/step_rounds_invariant_golden.npz``: one JAX
-training iteration of the narrow 16 px networks (``narrow_nets.py``), both
-lazy regularizers, phase by phase, in two configurations of the JAX
-``TrainConfig``:
+"""Write the goldens of one JAX training iteration of the narrow 16 px
+networks (``narrow_nets.py``), both lazy regularizers, phase by phase, in
+four configurations of the JAX ``TrainConfig`` at a global minibatch of 4:
 
-- ``rounds``: ``grad_accum_rounds=2`` at minibatch 4 (two rounds of 2; D
-  main then sees 4 fakes per round, two minibatch-stddev groups of 2);
-- ``invariant``: ``invariant_rng=True`` at minibatch 4.
+- ``step_rounds_invariant_golden.npz``, on a one-device CPU mesh:
+  ``rounds``, ``grad_accum_rounds=2`` (two rounds of 2; D main then sees 4
+  fakes per round, two minibatch-stddev groups of 2), and ``invariant``,
+  ``invariant_rng=True``;
+- ``step_dp2_golden.npz``, on a two-device CPU mesh (2 examples per
+  device): ``dp2``, the default config, and ``dp2_invariant``,
+  ``invariant_rng=True``.
 
-Both run through the JAX ``make_train_step`` on a one-device CPU mesh, with
-gamma 100, mirror augment, the pixel-pyramid LPIPS, learning rates 0.002,
-Gs beta 0.99 and the step key ``jax.random.key(3)``, as
-``tests/test_torch_train_step.py`` runs one iteration. The file holds, per
-configuration, the batch (numpy seed 0), every draw re-derived from the keys
-(``jax_draws.train_step_rounds`` and ``train_step_invariant``, in the port's
-layout), each phase's loss scalars, first Adam moment (with beta1 = 0, the
-phase's gradient) and Adam count, and after the iteration the second
-moments, pl_mean and dlatent_avg. The tests compare the port with it, so
-that they do not compile the JAX step (minutes on the CPU). Run it from the
-root of the repository, with JAX on the CPU (about two minutes):
+Each runs through the JAX ``make_train_step`` with gamma 100, mirror
+augment, the pixel-pyramid LPIPS, learning rates 0.002, Gs beta 0.99 and the
+step key ``jax.random.key(3)``, as ``tests/test_torch_train_step.py`` runs
+one iteration. A file holds the batch (numpy seed 0) and, per
+configuration, every draw re-derived from the keys on each device
+(``jax_draws.train_step_rounds``, ``train_step`` and
+``train_step_invariant``, in the port's layout; under ``draws<d>/`` for
+device d of the two-device mesh), each phase's loss scalars, first Adam
+moment (with beta1 = 0, the phase's gradient, averaged over the devices) and
+Adam count, and after the iteration the second moments, pl_mean and
+dlatent_avg. The tests compare the port with them, so that they do not
+compile the JAX step (minutes on the CPU). Run it from the root of the
+repository, with JAX on the CPU (about two minutes a file); name the files
+to write, or none for both:
 
-    python tests/torch_golden/make_step_golden.py
+    python tests/torch_golden/make_step_golden.py [step_dp2_golden.npz ...]
 """
 
 import os
@@ -29,13 +35,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-OUT = os.path.join(HERE, "step_rounds_invariant_golden.npz")
 MB = 4
 G_LR = D_LR = 0.002
 GS_BETA = 0.99
 GAMMA = 100.0
 STEP_KEY = 3
-CONFIGS = {"rounds": dict(grad_accum_rounds=2), "invariant": dict(invariant_rng=True)}
+# file -> (mesh devices, {configuration: TrainConfig fields})
+FILES = {
+    "step_rounds_invariant_golden.npz": (1, {"rounds": dict(grad_accum_rounds=2),
+                                             "invariant": dict(invariant_rng=True)}),
+    "step_dp2_golden.npz": (2, {"dp2": {}, "dp2_invariant": dict(invariant_rng=True)}),
+}
 
 
 def batch(mb=MB, seed=0):
@@ -54,10 +64,18 @@ def batch(mb=MB, seed=0):
     }
 
 
-def main():
+def main(names):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     sys.path.insert(0, ROOT)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_num_cpu_devices", 2)
+    for name in names or FILES:
+        write(name, *FILES[name])
+
+
+def write(file_name, num_devices, configs):
     import jax
     import jax.numpy as jnp
 
@@ -73,9 +91,9 @@ def main():
     b = batch()
     key = jax.random.key(STEP_KEY)
     out = {f"batch/{k}": v for k, v in b.items()}
-    for name, kw in CONFIGS.items():
+    for name, kw in configs.items():
         cfg = TrainConfig(gamma=GAMMA, mirror_augment=True, **kw)
-        ph = make_train_step(G, D, lp, make_data_mesh(1), cfg).phases
+        ph = make_train_step(G, D, lp, make_data_mesh(num_devices), cfg).phases
         state = create_train_state(jax.random.key(0), G, D)._replace(
             g_params=gp, d_params=dp, gs_params=jax.tree_util.tree_map(np.copy, gp))
         k1, k2, k3, k4 = jax.random.split(key, 4)
@@ -84,7 +102,8 @@ def main():
         for phase, opt, fn in (
                 ("g_main", "g_opt", lambda s: ph["g_step"](
                     s, bg, k1, jnp.float32(G_LR), jnp.float32(2.5))),
-                ("g_reg", "g_opt", lambda s: ph["g_reg_step"](s, k2, jnp.float32(G_LR), MB)),
+                ("g_reg", "g_opt", lambda s: ph["g_reg_step"](
+                    s, k2, jnp.float32(G_LR), MB // num_devices)),
                 ("d_main", "d_opt", lambda s: ph["d_step"](
                     s, bd, k3, jnp.float32(D_LR), jnp.float32(GS_BETA))),
                 ("d_reg", "d_opt", lambda s: ph["d_reg_step"](
@@ -100,14 +119,22 @@ def main():
                 out[f"{name}/v/{opt}/{k}"] = v
         out[f"{name}/pl_mean"] = np.float32(state.pl_mean)
         out[f"{name}/dlatent_avg"] = np.asarray(state.g_params["dlatent_avg"])
-        draws = (jax_draws.train_step_rounds(G, key, MB, 2) if name == "rounds"
-                 else jax_draws.train_step_invariant(G, key, MB))
-        for k, v in jax_draws.flatten_draws(draws).items():
-            out[f"{name}/draws/{k}"] = np.asarray(v)
+        if name == "rounds":
+            per_device = [jax_draws.train_step_rounds(G, key, MB, 2)]
+        else:
+            draw = (jax_draws.train_step_invariant if cfg.invariant_rng
+                    else jax_draws.train_step)
+            per_device = [draw(G, key, MB // num_devices, device=d)
+                          for d in range(num_devices)]
+        for d, draws in enumerate(per_device):
+            at = f"{name}/draws/" if num_devices == 1 else f"{name}/draws{d}/"
+            for k, v in jax_draws.flatten_draws(draws).items():
+                out[at + k] = np.asarray(v)
         print(name, "done", flush=True)
-    np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
+    path = os.path.join(HERE, file_name)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
