@@ -170,16 +170,42 @@ Phases, each logged with the seconds since start:
      and ``run_training --num-gpus 2`` raising before a run dir on this
      one-card machine; (d) ``GsSampler`` over the two ranks against one
      rank, 64 images: at most one uint8 level apart.
+ 17. StyleGAN1, the dataset tool, prd and the pretrained-network loader:
+     (a) ``GStyle.create()`` (1024 px) and ``DBasic`` at 1024 px, fresh from
+     a seed, minibatch 4, float32 with TF32 off: every kernel configuration
+     of a G forward at lod 0 and 1.5 and of D's forward and first-order
+     backward (the blur: 3x3 taps, up = down = 1, pad 1, on rows up to 1024
+     wide, and its transpose) exact to its plain version in the three
+     dtypes; G's images and D's scores and gradients, kernel path against
+     plain path at phases 5 and 9's limits; the launches of G forward, D
+     forward and backward against the counts derived from the model; G's
+     images/s with the kernels and the plain versions in turns; the blur at
+     [4,16,1024,1024] and its transpose in float32 and bf16 (ms, plain,
+     bound, cuDNN's depthwise conv2d); (b) the stacked-MNIST run through the
+     port alone, cut in depth only: ``scripts/make_synthetic_mnist.py``,
+     ``python -m inclusivegan_torch.dataset_tool create_mnistrgb`` (then
+     ``display``, ``compare`` with itself and ``extract``, read back by
+     ``read_png`` equal to the records), ``run_training`` with the README's
+     config at 32 px for 4 iterations and one rebuild, with its launch
+     counts, and ``run_metrics --metrics mode_counts_24k,KL24k``; (c)
+     ``prd_from_image_folders`` on 256 generated and 256 real images, F8 and
+     F1/8 in [0, 1], the plot read back, then again in this process: the
+     embeddings from the cache and the k-means' launches on the card; (d)
+     ``pretrained_networks.load_networks`` twice: the cached objects, the
+     Gs phase 5's network bit for bit, drawing phase 5's images within
+     phase 5's limits.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
 300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s,
-phase 15 under 150 s and phase 16 under 120 s; a run over any budget fails. Any failure raises and
+phase 15 under 150 s, phase 16 under 120 s and phase 17 under 150 s; a run
+over any budget fails. Any failure raises and
 the script exits non-zero. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Each kernel's record takes its
 ``launches`` and its timings (shape, ms, plain, bound, library) from one
 path, the IvOM projector of phase 14; the timing of phase 6 or 11 stands
 under ``earlier_timing``, and every path's launches, phase 15's
-``run_training --knn-backend dci`` and phase 16's ranks among them, under
-``launches_by_path``.
+``run_training --knn-backend dci``, phase 16's ranks and phase 17's
+``stylegan1`` and ``stacked_mnist`` among them, under ``launches_by_path``;
+the upfirdn2d records carry phase 17's blur rows as ``stylegan1_blur``.
 """
 
 import contextlib
@@ -3428,6 +3454,388 @@ def data_parallel_phase(np, torch, ck):
     return paths
 
 
+# Phase 17: StyleGAN1 at full width, the stacked-MNIST run through the port
+# alone (dataset tool, training CLI, mode counts), prd on the card and the
+# pretrained-network loader. StyleGAN1 is fresh from a seed: GStyle.create()
+# (1024 px) and DBasic at 1024 px with fmap_base 8192, minibatch 4. The
+# stacked-MNIST run is cut in depth only: 2000 synthetic digits
+# (scripts/make_synthetic_mnist.py), 2400 stacked images (240000), 4
+# iterations and one rebuild of 2400 candidates (--num-samples-factor 1 of
+# 10), mode counts and KL at MNIST_IMAGES images (24576); prd on 256 images
+# of each folder (50000).
+SG1_BUDGET_S = 150
+SG1_MB = 4
+SG1_D = dict(resolution=1024, num_channels=3, fmap_base=8192)
+SG1_BLUR_SHAPE = (4, 16, 1024, 1024)
+SG1_LODS = (0.0, 1.5)
+MNIST_DIGITS = 2000
+MNIST_STACKED = 2400
+MNIST_DATASET = "stacked_mnist_2400"
+MNIST_ITERS = 4
+MNIST_CLI_FLAGS = ["--config", "config-e-Gskip-Dresnet", "--num-gpus", "1",
+                   "--data-size", str(MNIST_STACKED), "--num-samples-factor", "1",
+                   "--candidate-batch-size", "1024", "--lpips-weights", LPIPS_WEIGHTS,
+                   "--metrics", "none", "--smoke-test-max-iters", str(MNIST_ITERS)]
+PRD_IMAGES = 256
+
+
+def sg1_expected(G, D):
+    """Launches of one GStyle forward (a lrelu per mapping layer and per
+    synthesis epilogue; a blur after each upsampling conv) and of one
+    DBasic forward and first-order backward (lrelu layers: FromRGB at the
+    top, then per block Conv0, Conv1_down and the next FromRGB, then the
+    4x4 conv and Dense0; a blur per block; each with its gradient)."""
+    blocks_g = G.synthesis.resolution_log2 - 2
+    blocks_d = D.resolution_log2 - 2
+    d_lrelu = 1 + 3 * blocks_d + 2
+    return {"bias_lrelu": G.mapping.mapping_layers + G.synthesis.num_layers + d_lrelu,
+            "bias_lrelu_grad": d_lrelu, "upfirdn2d": blocks_g + blocks_d,
+            "upfirdn2d_transposed": blocks_d}
+
+
+def sg1_forward_backward(torch, G, D, z, impl):
+    """G's images at lod 0, then D's scores and the gradient of their sum
+    with respect to D's parameters and the images."""
+    with torch.no_grad():
+        imgs = G(z, lod=0.0, randomize_noise=False, impl=impl)
+    x = imgs.detach().requires_grad_()
+    scores = D(x, impl=impl)
+    named = dict(D.named_parameters())
+    grads = torch.autograd.grad(scores.sum(), [x, *named.values()])
+    return imgs, scores.detach(), dict(zip(["images", *named], grads))
+
+
+def blur_rows(np, torch, ck, gen):
+    """The blur at SG1_BLUR_SHAPE, forward and transposed, in float32 and
+    bfloat16: ms, plain, bound, cuDNN's depthwise conv2d, max abs err."""
+    from inclusivegan_torch.models.stylegan import BLUR_FILTER
+    from inclusivegan_torch.ops import setup_filter, upfirdn2d
+    from inclusivegan_torch.ops.bench import depthwise_library_call, device_ms, fir_bound
+    f = setup_filter(BLUR_FILTER)
+    rows = []
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(SG1_BLUR_SHAPE, device="cuda", generator=gen).to(dtype)
+            for counter in ("upfirdn2d", "upfirdn2d_transposed"):
+                # the transpose of the blur: flipped (symmetric) taps, up and
+                # down 1, pad gpad = 1, the same shape
+                kern = lambda: ck.upfirdn2d(x, f, 1, 1, (1, 1, 1, 1), 1.0,  # noqa: E731
+                                            counter=counter)
+                plain = lambda: upfirdn2d(x, f, pad=(1, 1, 1, 1), impl="plain")  # noqa: E731
+                err = (kern().float() - plain().float()).abs().max().item()
+                bound_ms, bound_by = fir_bound(SG1_BLUR_SHAPE, f, 1, 1, (1, 1, 1, 1),
+                                               x.element_size())
+                lib = depthwise_library_call(x, f, 1, 1, (1, 1, 1, 1), 1.0)
+                rows.append(dict(
+                    config=f"blur {counter} {str(dtype)[6:]}", shape=list(SG1_BLUR_SHAPE),
+                    ms=device_ms(kern), plain_ms=device_ms(plain, iters=5), bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=device_ms(lib), max_abs_err=err))
+            del x
+    for r in rows:
+        log(f"{r['config']} {tuple(r['shape'])}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%}), "
+            f"depthwise conv2d {r['library_ms']:.4f}, max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
+def stylegan1_models(np, torch, ck, gen, failures):
+    """17(a). Returns the launches of the StyleGAN1 path, the largest error
+    of each kernel at its configurations, and the blur rows."""
+    from inclusivegan_torch.models.stylegan import DBasic, GStyle
+    from inclusivegan_torch.ops.bench import Recorder
+    from inclusivegan_torch.profile_generate import report
+    from inclusivegan_torch.utils import generator_output_to_uint8
+    g_init = torch.Generator(device="cuda").manual_seed(17)
+    G = GStyle.create().to("cuda").init(g_init)
+    D = DBasic(**SG1_D).to("cuda").init(g_init)
+    log(f"GStyle.create(): {G.synthesis.resolution} px, {G.synthesis.num_layers} layers, "
+        f"mapping {G.mapping.mapping_layers}x{G.mapping.dlatent_size}, psi "
+        f"{G.truncation_psi} cutoff {G.truncation_cutoff}; DBasic({SG1_D}); minibatch "
+        f"{SG1_MB}, float32, TF32 off")
+    z = torch.randn(SG1_MB, G.mapping.latent_size, device="cuda", generator=gen)
+    with Recorder(ck, ("bias_lrelu", "bias_lrelu_grad", "upfirdn2d")) as rec:
+        with torch.no_grad():
+            for lod in SG1_LODS:
+                G(z, lod=lod, randomize_noise=False)
+        sg1_forward_backward(torch, G, D, z, "cuda")
+    torch.cuda.synchronize()
+    errs, n_configs = check_recorded(np, torch, ck, rec, gen, "stylegan1",
+                                     dtypes=[getattr(torch, d) for d in DTYPES])
+    log(f"stylegan1: {n_configs} kernel configurations exact in {len(DTYPES)} dtypes")
+
+    expected = sg1_expected(G, D)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    imgs_k, scores_k, grads_k = sg1_forward_backward(torch, G, D, z, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(ck.launches)
+    check_launches("stylegan1 G forward, D forward and backward", launches, expected,
+                   failures)
+    with deterministic(torch):
+        imgs_k, scores_k, grads_k = sg1_forward_backward(torch, G, D, z, "cuda")
+        before = dict(ck.launches)
+        imgs_p, scores_p, grads_p = sg1_forward_backward(torch, G, D, z, "plain")
+        torch.cuda.synchronize()
+        if dict(ck.launches) != before:
+            failures.append("stylegan1: the plain path launched a kernel")
+    levels, frac = compare_images(np, generator_output_to_uint8(imgs_k).cpu().numpy(),
+                                  generator_output_to_uint8(imgs_p).cpu().numpy())
+    atol, rtol = TRAIN_SCALAR_TOL
+    bad_scores = not bool(((scores_k - scores_p).abs()
+                           <= atol + rtol * scores_p.abs()).all())
+    worst = max((rel_l2(torch, grads_k[k], grads_p[k]), k) for k in grads_p)
+    log(f"stylegan1 kernel path against plain path: G images max |diff| {levels} levels, "
+        f"{frac:.4%} differ (limits {IMG_MAX_LEVELS}, {IMG_MAX_FRACTION:.1%}); D scores "
+        f"{'agree' if not bad_scores else 'DISAGREE'} (atol {atol:g}, rtol {rtol:g}); "
+        f"{len(grads_p)} gradients, largest relative L2 {worst[0]:.3e} ({worst[1]}; limit "
+        f"{TRAIN_GRAD_REL_L2:g})")
+    if (levels > IMG_MAX_LEVELS or frac > IMG_MAX_FRACTION or bad_scores
+            or not worst[0] <= TRAIN_GRAD_REL_L2):
+        failures.append("stylegan1: the kernel path disagrees with the plain path")
+    if not (torch.isfinite(imgs_k).all() and torch.isfinite(scores_k).all()):
+        failures.append("stylegan1: non-finite images or scores")
+    del imgs_k, imgs_p, grads_k, grads_p
+
+    # images/s of GStyle at lod 0, kernels and plain versions in turns
+    runs = {"cuda": [], "plain": []}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            G(z, randomize_noise=False, impl=impl)
+        for i in range(4):
+            for impl in (("plain", "cuda") if i % 2 == 0 else ("cuda", "plain")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(3):
+                    G(z, randomize_noise=False, impl=impl)
+                torch.cuda.synchronize()
+                runs[impl].append(3 * SG1_MB / (time.perf_counter() - t))
+    for impl, r in runs.items():
+        log(f"GStyle 1024 px forward, minibatch {SG1_MB}, impl={impl}: "
+            f"{statistics.median(r):.2f} images/s (median of "
+            f"{', '.join(f'{v:.2f}' for v in r)})")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        G(z, randomize_noise=False)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    log(f"where one GStyle forward's device time goes ({wall_ms:.1f} ms):")
+    report(prof, wall_ms)
+    del G, D
+    torch.cuda.empty_cache()
+    rows = blur_rows(np, torch, ck, gen)
+    for r in rows:
+        counter = r["config"].split()[1]
+        errs[counter] = max(errs[counter], r["max_abs_err"])
+    return launches, errs, rows, {k: statistics.median(v) for k, v in runs.items()}
+
+
+def run_cli(argv, timeout):
+    """``python argv`` from the repo root: (seconds, standard output);
+    raises with the output's tail if it exits non-zero."""
+    log("$ python " + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
+                               for a in argv))
+    t = time.time()
+    proc = subprocess.run([sys.executable] + argv, cwd=HERE, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print((proc.stdout + proc.stderr)[-3000:], flush=True)
+        raise RuntimeError(f"{argv[:3]} exited {proc.returncode}")
+    return time.time() - t, proc.stdout
+
+
+def stacked_mnist_run(np, torch, ck, tmp, failures):
+    """17(b). Returns the launches of the training CLI and its run dir."""
+    from inclusivegan_torch.data.dataset import TFRecordDataset
+    from inclusivegan_torch.metrics.metric_defaults import metric_defaults
+    from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
+    from inclusivegan_torch.utils.easydict import EasyDict
+    from inclusivegan_torch.utils.misc import read_png
+    mnist, data_dir = os.path.join(tmp, "mnist"), os.path.join(tmp, "datasets")
+    dset = os.path.join(data_dir, MNIST_DATASET)
+    secs, _ = run_cli([os.path.join(HERE, "scripts", "make_synthetic_mnist.py"), "--out", mnist,
+                       "--num-images", str(MNIST_DIGITS), "--seed", "0"], 60)
+    log(f"{MNIST_DIGITS} synthetic digits in {secs:.1f} s")
+    tool = ["-m", "inclusivegan_torch.dataset_tool"]
+    secs, _ = run_cli(tool + ["create_mnistrgb", dset, mnist, "--num_images",
+                              str(MNIST_STACKED)], 60)
+    log(f"create_mnistrgb of {MNIST_STACKED} images: {secs:.1f} s")
+    for cmd in (["display", dset], ["compare", dset, dset]):
+        _, out = run_cli(tool + cmd, 60)
+        log(f"dataset_tool {cmd[0]}: {out.strip().splitlines()[-1]}")
+        if cmd[0] == "compare" and out.strip().splitlines()[-1] != "identical":
+            failures.append("dataset_tool compare of the set with itself is not identical")
+        if cmd[0] == "display" and not out.startswith(f"{MNIST_STACKED} images, shape [3, 32, 32], "
+                                                      f"label size 1000"):
+            failures.append(f"dataset_tool display: {out.strip()}")
+    xdir = os.path.join(tmp, "extract8")
+    run_cli(tool + ["extract", dset, xdir, "--num_images", "8"], 60)
+    recs = TFRecordDataset(dset, max_label_size=0).get_all_images()[:8]
+    back = np.stack([read_png(os.path.join(xdir, f"img{i:08d}.png")).transpose(2, 0, 1)
+                     for i in range(8)])
+    log(f"extract of 8 images read back by read_png: equal to the records "
+        f"{np.array_equal(back, recs)}")
+    if not np.array_equal(back, recs):
+        failures.append("extract's PNGs read back differ from the records")
+
+    root = os.path.join(tmp, "results")
+    argv = ["--data-dir", data_dir, "--dataset", MNIST_DATASET, "--result-dir", root] \
+        + MNIST_CLI_FLAGS
+    log("cut in depth only: " + "; ".join([
+        f"{MNIST_DIGITS} synthetic digits, {MNIST_STACKED} stacked images (240000)",
+        f"{MNIST_ITERS} iterations, one rebuild of {MNIST_STACKED} candidates "
+        f"(--num-samples-factor 1 of 10)", f"mode counts and KL at {MNIST_IMAGES} images "
+        f"(24576)", "--lpips-weights artifacts/celeba_perceptual_vgg.npz, as the card's "
+        "copy leaves artifacts/perceptual_vgg.npz out"]))
+    _, launches, secs, _ = run_in_process(torch, ck, "inclusivegan_torch.run_training", argv)
+    run_dir, _ = read_run_log(root)
+    check_loop_run(run_dir, f"stacked-MNIST run_training, {MNIST_ITERS} iterations, "
+                   f"{secs:.1f} s", failures)
+    G32 = GMain.create(**MNIST_G_CONFIG)
+    D32 = Discriminator(**MNIST_D_CONFIG)
+    per_phase = expected_launches(G32, D32)
+    fwd = forward_launches(G32, math.ceil(MNIST_STACKED / 1024))
+    expected = {k: MNIST_ITERS * (per_phase["g_main"][k] + per_phase["d_main"][k])
+                + per_phase["g_reg"][k] + per_phase["d_reg"][k] + fwd.get(k, 0)
+                for k in KERNELS}
+    check_launches("stacked-MNIST run_training", launches, expected, failures)
+
+    pkl = os.path.join(run_dir, "network-final.pkl")
+    mcuts = {n: EasyDict(metric_defaults[n], num_images=MNIST_IMAGES)
+             for n in ("mode_counts_24k", "KL24k")}
+    res_m, m_launches, m_s, _ = run_in_process(
+        torch, ck, "inclusivegan_torch.run_metrics",
+        ["--network", pkl, "--metrics", "mode_counts_24k,KL24k", "--classifier-weights",
+         MNIST_WEIGHTS, "--data-dir", data_dir, "--dataset", MNIST_DATASET,
+         "--result-dir", os.path.join(tmp, "metrics")], mcuts)
+    check_launches("stacked-MNIST run_metrics mode_counts_24k,KL24k", m_launches,
+                   dict(forward_launches(G32, 2 * MNIST_IMAGES // 32), bias_lrelu_grad=0,
+                        upfirdn2d_transposed=0), failures)
+    log(f"stacked-MNIST run_metrics mode_counts_24k,KL24k: {m_s:.3f} s; {res_m}")
+    if not (1 <= res_m["mode_counts_24k"] <= 1000 and math.isfinite(res_m["KL24k"])
+            and "mode_counts_24k_untrained_classifier" not in res_m):
+        failures.append(f"stacked-MNIST mode counts and KL: {res_m}")
+    return launches, pkl, dset
+
+
+def prd_on_the_card(np, torch, ck, tmp, pkl, dset, failures):
+    """17(c): prd_from_image_folders on 256 generated and 256 real images,
+    then again in this process, where the embeddings come from the cache;
+    the profiler counts the launches of one k-means clustering on the
+    card."""
+    from inclusivegan_torch.data import dataset_tool
+    from inclusivegan_torch.models import feature_nets
+    from inclusivegan_torch.prd import prd_from_image_folders, prd_score
+    from inclusivegan_torch.utils.misc import read_png
+    fakes, reals = os.path.join(tmp, "prd_fakes"), os.path.join(tmp, "prd_reals")
+    run_in_process(torch, ck, "inclusivegan_torch.run_generator",
+                   ["generate-images", "--network", pkl, "--num-images", str(PRD_IMAGES),
+                    "--minibatch-size", "64", "--result-dir", fakes])
+    with contextlib.redirect_stdout(io.StringIO()):
+        dataset_tool.extract(dset, reals, num_images=PRD_IMAGES)
+    plot = os.path.join(tmp, "prd.png")
+    argv = ["--reference_dir", reals, "--eval_dirs", fakes, "--eval_labels", "run",
+            "--num_images", str(PRD_IMAGES), "--cache_dir", os.path.join(tmp, "prd_cache"),
+            "--plot_path", plot]
+    secs, out = run_cli(["-m", "inclusivegan_torch.prd.prd_from_image_folders"] + argv, 120)
+    (line,) = [ln.split() for ln in out.splitlines() if ln.endswith(" run")]
+    f8, f1_8 = float(line[0]), float(line[1])
+    img = read_png(plot)
+    log(f"prd_from_image_folders: {secs:.1f} s; F8 {f8}, F1/8 {f1_8}; "
+        f"plot {img.shape}")
+    if not (0 <= f8 <= 1 and 0 <= f1_8 <= 1) or img.shape != (1050, 1050, 3):
+        failures.append(f"prd: F8 {f8}, F1/8 {f1_8}, plot {img.shape}")
+
+    embeds = []
+    call = feature_nets.VGGFeatureNet.__call__
+    with mock.patch.object(feature_nets.VGGFeatureNet, "__call__",
+                           lambda self, x: embeds.append(len(x)) or call(self, x)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pairs = prd_from_image_folders.main(argv + ["--silent"])
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t
+    # one clustering of the cached embeddings (10 k-means++ starts, Lloyd to
+    # convergence), its kernels counted by the profiler
+    feats = [torch.from_numpy(np.load(os.path.join(tmp, "prd_cache", f))).cuda()
+             for f in sorted(os.listdir(os.path.join(tmp, "prd_cache")))]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, _, inertia, iters = prd_score.kmeans(
+            torch.cat(feats).double(), 20, generator=torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"prd again in this process: {again_s:.2f} s, {len(embeds)} VGG calls (the cache), "
+        f"F8 {pairs[0][0]:.3f} F1/8 {pairs[0][1]:.3f}; one clustering of the {len(feats)} x "
+        f"{tuple(feats[0].shape)} embeddings on the card: {iters} Lloyd iterations over 10 "
+        f"starts, {kernels} kernel launches, inertia {inertia:.6g}")
+    if embeds or kernels == 0:
+        failures.append(f"prd's second call: {len(embeds)} VGG calls, {kernels} kernels")
+    if (round(pairs[0][0], 3), round(pairs[0][1], 3)) != (f8, f1_8):
+        failures.append(f"prd's second call gave {pairs}, the first {(f8, f1_8)}")
+    return dict(seconds=secs, again_seconds=again_s, kmeans_kernels=kernels,
+                kmeans_iterations=iters, f8=f8, f1_8=f1_8)
+
+
+def pretrained_phase(np, torch, images, failures):
+    """17(d): pretrained_networks.load_networks twice: the second call
+    returns the cached objects, whose Gs holds phase 5's network bit for bit
+    (``load_snapshot``'s parameters and buffers) and draws phase 5's images
+    within phase 5's limits (cuDNN's heuristics pick other algorithms as the
+    free memory differs)."""
+    from inclusivegan_torch import pretrained_networks
+    from inclusivegan_torch.run_generator import generate_images
+    from inclusivegan_torch.snapshot import load_snapshot
+    t = time.time()
+    first = pretrained_networks.load_networks(NETWORK)
+    load_s = time.time() - t
+    second = pretrained_networks.load_networks(NETWORK)
+    same = all(a is b for a, b in zip(first, second))
+    want = load_snapshot(NETWORK, device="cuda").state_dict()
+    got_state = first[2].state_dict()
+    equal = set(got_state) == set(want) and all(
+        got_state[k].dtype == v.dtype and torch.equal(got_state[k], v) for k, v in want.items())
+    del want, got_state
+    got = generate_images(first[2], NUM_IMAGES, MINIBATCH, device="cuda")
+    levels, frac = compare_images(np, got, images)
+    log(f"pretrained_networks.load_networks: {load_s:.1f} s, the second call returns the "
+        f"cached objects {same}; its Gs is phase 5's network bit for bit {equal}, and "
+        f"draws phase 5's images within {levels} levels, {frac:.4%} of values (limits "
+        f"{IMG_MAX_LEVELS}, {IMG_MAX_FRACTION:.1%})")
+    if not (same and equal and levels <= IMG_MAX_LEVELS and frac <= IMG_MAX_FRACTION):
+        failures.append("pretrained_networks: not cached, another network than phase 5's, "
+                        "or other images")
+
+
+def stylegan1_and_tools_phase(np, torch, ck, images):
+    """Phase 17. Returns the launch counts of its paths, the largest error
+    of each kernel at its configurations, and the blur rows."""
+    phase(f"17 StyleGAN1 at full width, the stacked-MNIST run through the port, prd, "
+          f"pretrained networks (budget {SG1_BUDGET_S} s)")
+    t_phase = time.time()
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    torch.cuda.empty_cache()
+    sg1_launches, errs, rows, ips = stylegan1_models(np, torch, ck, gen, failures)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sg1_")
+    try:
+        mnist_launches, pkl, dset = stacked_mnist_run(np, torch, ck, tmp, failures)
+        prd = prd_on_the_card(np, torch, ck, tmp, pkl, dset, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pretrained_phase(np, torch, images, failures)
+    secs = time.time() - t_phase
+    log(f"phase 17 took {secs:.1f} s (budget {SG1_BUDGET_S} s)")
+    if failures:
+        raise RuntimeError("phase 17 failed: " + "; ".join(failures))
+    if secs >= SG1_BUDGET_S:
+        raise RuntimeError(f"phase 17 took {secs:.1f} s, over its {SG1_BUDGET_S} s budget")
+    return ({"stylegan1": sg1_launches, "stacked_mnist": mnist_launches}, errs,
+            dict(blur=rows, gstyle_images_per_s=ips, prd=prd))
+
+
 def main() -> int:
     import atexit
     import numpy as np
@@ -3685,6 +4093,17 @@ def main() -> int:
     for r in records:
         r["launches_by_path"].update({f"data_parallel {path}": counts[r["name"]]
                                       for path, counts in dp_launches.items()})
+    gc.collect()
+    sg1_launches, sg1_errs, sg1_readings = stylegan1_and_tools_phase(np, torch, ck, images)
+    for r in records:
+        # the top-level launches and timings stay the projector's (phase 14);
+        # phase 17's paths are under launches_by_path, its blur rows beside
+        r["launches_by_path"].update({path: counts[r["name"]]
+                                      for path, counts in sg1_launches.items()})
+        r["max_abs_err"] = max(r["max_abs_err"], sg1_errs[r["name"]])
+        blur = [row for row in sg1_readings["blur"] if row["config"].split()[1] == r["name"]]
+        if blur:
+            r["stylegan1_blur"] = blur
     log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)

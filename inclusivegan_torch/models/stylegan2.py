@@ -117,10 +117,10 @@ def dtype_name(dtype) -> str:
 
 
 def set_compute_dtype(net: nn.Module, dtype) -> None:
-    """Make ``net`` (a ``GMain``, or a ``Discriminator``) compute in
-    ``dtype``, as ``create(dtype=...)`` would have made it; the parameters
-    keep their dtype."""
-    for m in (net.mapping, net.synthesis) if isinstance(net, GMain) else (net,):
+    """Make ``net`` (a generator with ``mapping`` and ``synthesis``, or a
+    discriminator) compute in ``dtype``, as ``create(dtype=...)`` would
+    have made it; the parameters keep their dtype."""
+    for m in (net.mapping, net.synthesis) if hasattr(net, "synthesis") else (net,):
         m.dtype = compute_dtype(dtype)
 
 

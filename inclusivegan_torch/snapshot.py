@@ -1,6 +1,6 @@
 """Read and write ``inclusivegan_tpu.network_snapshot.v1`` pickles: carry
 the JAX package's numpy parameter trees across to the port's ``GMain`` and
-``Discriminator``, and the whole (G, D, Gs) triple as a training state;
+``Discriminator`` (and StyleGAN1's ``GStyle`` and ``DBasic``), and the whole (G, D, Gs) triple as a training state;
 ``snapshot_dict`` writes a training state back in the same format, which the
 JAX package's ``load_snapshot`` reads.
 
@@ -17,6 +17,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from .models.stylegan import DBasic, GStyle, GSynthesisStyleGAN1
 from .models.stylegan2 import Discriminator, GMain, GMapping, GSynthesis
 
 SNAPSHOT_FORMAT = "inclusivegan_tpu.network_snapshot"
@@ -90,18 +91,22 @@ def snapshot_dict(G, D, state) -> Dict[str, Any]:
             "G": net(G, state.G), "D": net(D, state.D), "Gs": net(G, state.Gs)}
 
 
-def gmain_from_params(config: Dict[str, Any], params: Dict[str, Any],
-                      device="cuda") -> GMain:
-    """Build the port's ``GMain`` from a JAX ``GMain`` config dict (the
-    snapshot's ``Gs.config``) and its numpy parameter tree."""
+def _generator_from_params(generator_cls, synthesis_cls, config, params, device):
     cfg = dict(config)
     mapping_cfg = dict(cfg.pop("mapping"))
     synthesis_cfg = dict(cfg.pop("synthesis"))
     for c in (mapping_cfg, synthesis_cfg):
         c.pop("dtype", None)  # the stored compute dtype; the port runs float32
-    G = GMain(GMapping(**mapping_cfg), GSynthesis(**synthesis_cfg), **cfg)
+    G = generator_cls(GMapping(**mapping_cfg), synthesis_cls(**synthesis_cfg), **cfg)
     G.load_state_dict(params_to_state_dict(params), strict=True, assign=True)
     return G.to(device)
+
+
+def gmain_from_params(config: Dict[str, Any], params: Dict[str, Any],
+                      device="cuda") -> GMain:
+    """Build the port's ``GMain`` from a JAX ``GMain`` config dict (the
+    snapshot's ``Gs.config``) and its numpy parameter tree."""
+    return _generator_from_params(GMain, GSynthesis, config, params, device)
 
 
 def discriminator_from_params(config: Dict[str, Any], params: Dict[str, Any],
@@ -111,6 +116,25 @@ def discriminator_from_params(config: Dict[str, Any], params: Dict[str, Any],
     cfg = dict(config)
     cfg.pop("dtype", None)  # the stored compute dtype; the port runs float32
     D = Discriminator(**cfg)
+    D.load_state_dict(params_to_state_dict(params), strict=True, assign=True)
+    return D.to(device)
+
+
+def gstyle_from_params(config: Dict[str, Any], params: Dict[str, Any],
+                       device="cuda") -> GStyle:
+    """Build the port's StyleGAN1 ``GStyle`` from a JAX ``GStyle`` config
+    dict (``dataclasses.asdict``) and its numpy parameter tree (mapping,
+    synthesis, noise, dlatent_avg)."""
+    return _generator_from_params(GStyle, GSynthesisStyleGAN1, config, params, device)
+
+
+def dbasic_from_params(config: Dict[str, Any], params: Dict[str, Any],
+                       device="cuda") -> DBasic:
+    """Build the port's StyleGAN1 ``DBasic`` from a JAX ``DBasic`` config
+    dict and its numpy parameter tree."""
+    cfg = dict(config)
+    cfg.pop("dtype", None)
+    D = DBasic(**cfg)
     D.load_state_dict(params_to_state_dict(params), strict=True, assign=True)
     return D.to(device)
 

@@ -1,18 +1,21 @@
 """Host-side helpers of the training slice and the loop, copied from
 ``inclusivegan_tpu/utils/misc.py`` (numpy only).
 
-``save_image_grid`` writes its PNG with ``write_png`` below (``zlib`` and
-``struct``, no Pillow): the machines the port trains on need not have it.
-``parse_config_for_previous_run`` and ``apply_mirror_augment`` serve the
-metrics.
+``save_image_grid`` writes its PNG with ``write_png`` below and ``read_png``
+reads one back (``zlib`` and ``struct``, no Pillow): the machines the port
+trains on need not have it. ``parse_config_for_previous_run`` and
+``apply_mirror_augment`` serve the metrics. ``open_url`` opens local paths
+and ``file://`` URLs only: the port downloads nothing.
 """
 
+import io
 import os
 import pickle
 import re
 import struct
 import zlib
 from typing import Any, Optional, Tuple
+from urllib.parse import unquote, urlparse
 
 import numpy as np
 
@@ -27,6 +30,14 @@ def format_time(seconds: float) -> str:
     if s < 86400:
         return f"{s // 3600}h {(s // 60) % 60:02d}m {s % 60:02d}s"
     return f"{s // 86400}d {(s // 3600) % 24:02d}h {(s // 60) % 60:02d}m"
+
+
+def is_pickleable(obj: Any) -> bool:
+    try:
+        pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        return True
+    except Exception:
+        return False
 
 
 def adjust_dynamic_range(data, drange_in, drange_out):
@@ -104,6 +115,45 @@ def _time_to_seconds(text: str) -> float:
     return total
 
 
+def convert_images_from_uint8(images, drange=(-1, 1)):
+    """uint8 [0, 255] -> float32 in ``drange``."""
+    return adjust_dynamic_range(np.asarray(images, np.float32), [0, 255], list(drange))
+
+
+def convert_images_to_uint8(images, drange=(-1, 1), nchw_to_nhwc=False):
+    """float in ``drange`` -> uint8, rounded and clipped; NCHW to NHWC when
+    asked."""
+    img = adjust_dynamic_range(np.asarray(images, np.float32), list(drange), [0, 255])
+    img = np.rint(img).clip(0, 255).astype(np.uint8)
+    if nchw_to_nhwc:
+        img = np.transpose(img, (0, 2, 3, 1))
+    return img
+
+
+def is_url(obj: Any) -> bool:
+    return isinstance(obj, str) and "://" in obj
+
+
+def open_url(url: str):
+    """The bytes of a local path or a ``file://`` URL as an open binary file.
+    The JAX package's ``open_url`` downloads other schemes into a cache; the
+    port has no network access and raises for them."""
+    if is_url(url):
+        parsed = urlparse(url)
+        if parsed.scheme != "file":
+            raise ValueError(f"open_url reads local files only, not {parsed.scheme}:// "
+                             f"({url}); copy the file and pass its path")
+        url = unquote(parsed.path)
+    with open(url, "rb") as f:
+        return io.BytesIO(f.read())
+
+
+def load_pkl(path: str) -> Any:
+    """Unpickle a file this project wrote (a local path or ``file://`` URL)."""
+    with open_url(path) as f:
+        return pickle.load(f)
+
+
 def save_pkl(obj: Any, path: str) -> None:
     with open(path, "wb") as f:
         pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -161,6 +211,76 @@ def write_png(path: str, image: np.ndarray) -> None:
                                                 0, 0, 0)))
         f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_png_chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> channels: gray, RGB, RGBA
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters (None, Sub, Up, Average, Paeth)."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: a running sum along the row, pixel by pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:
+            cur = (line + prev) & 0xFF
+        elif kind in (3, 4):
+            # Average and Paeth refer to the byte bpp to the left, which this
+            # row has just decoded: one pixel position at a time
+            cur = np.zeros(stride, np.int32)
+            for x in range(0, stride, bpp):
+                a = cur[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                b = prev[x:x + bpp]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+                cur[x:x + bpp] = (line[x:x + bpp] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG row {y} has filter type {kind}, not 0-4")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced greyscale, RGB or RGBA PNG as uint8 [H, W] or
+    [H, W, C]: the inverse of ``write_png``, for the PNGs of any writer
+    (every row filter). Raises ValueError for other bit depths, palette
+    images and interlaced images."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: read_png reads 8-bit non-interlaced greyscale, RGB "
+                         f"or RGBA; this is bit depth {depth}, color type {color_type}, "
+                         f"interlace {interlace}")
+    channels = _PNG_CHANNELS[color_type]
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels, channels)
+    return img.reshape(h, w) if channels == 1 else img.reshape(h, w, channels)
 
 
 def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1), grid_size=None) -> None:

@@ -69,3 +69,24 @@ def test_importing_every_module_builds_nothing():
                                      "inclusivegan_torch."):
         importlib.import_module(mod.name)
     assert cuda_kernels._lib is None
+
+
+LAZY_ONLY = ("PIL", "lmdb", "h5py", "cryptography")  # inside the functions that need them
+NEVER = ("sklearn", "matplotlib")  # the port has its own k-means and plot
+
+
+def _top_level_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_optional_packages_are_imported_lazily_and_never_sklearn(path):
+    anywhere = [m for m in _imported_modules(path) if m.split(".")[0] in NEVER]
+    top = [m for m in _top_level_modules(path) if m.split(".")[0] in LAZY_ONLY]
+    assert not anywhere and not top, (path, anywhere, top)
