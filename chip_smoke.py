@@ -194,17 +194,37 @@ Phases, each logged with the seconds since start:
      ``pretrained_networks.load_networks`` twice: the cached objects, the
      Gs phase 5's network bit for bit, drawing phase 5's images within
      phase 5's limits.
+ 18. the scripts that make a run's inputs, through the port alone
+     (``python -m inclusivegan_torch.scripts.*``), each trainer for one
+     epoch with its images/s: (a) ``scripts/make_synthetic_mnist.py`` (2000
+     digits), ``train_mnist_classifier``, its parameters against the same
+     trainer on the CPU from the same init, the npz read by
+     ``StackedMNISTClassifier`` giving modes on phase 17's stacked images;
+     (b) ``scripts/make_synthetic_celeba.py`` (1024 faces, rendered by
+     another process while phase 17 runs), ``dataset_tool create_celeba``,
+     ``train_attr_classifier`` (against the CPU likewise), the npz read by
+     ``CelebAAttrClassifier``; (c) ``train_perceptual_vgg --label-mode attrs
+     --batch 64`` on that set, its calibration and geometry, its npz (or
+     ``.rejected`` file, exit 3) read by ``load_lpips_params`` and
+     ``lpips_distance`` on the card against the CPU; (d) phase 5's snapshot
+     flattened into the reference's variable names and converted by
+     ``convert_reference_pkl``: trees bit for bit and configs (but for the
+     stored compute dtype) the snapshot's, ``pretrained_networks
+     .load_networks``' Gs phase 5's network drawing phase 5's images within
+     phase 5's limits, and a G forward, generate-images and a D forward
+     launching the kernels as derived.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
 300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s,
-phase 15 under 150 s, phase 16 under 120 s and phase 17 under 150 s; a run
-over any budget fails. Any failure raises and
+phase 15 under 150 s, phase 16 under 120 s, phase 17 under 150 s and phase
+18 under 120 s; a run over any budget fails. Any failure raises and
 the script exits non-zero. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Each kernel's record takes its
 ``launches`` and its timings (shape, ms, plain, bound, library) from one
 path, the IvOM projector of phase 14; the timing of phase 6 or 11 stands
 under ``earlier_timing``, and every path's launches, phase 15's
 ``run_training --knn-backend dci``, phase 16's ranks and phase 17's
-``stylegan1`` and ``stacked_mnist`` among them, under ``launches_by_path``;
+``stylegan1`` and ``stacked_mnist`` and phase 18's ``converted_reference``
+among them, under ``launches_by_path``;
 the upfirdn2d records carry phase 17's blur rows as ``stylegan1_blur``.
 """
 
@@ -216,6 +236,7 @@ import json
 import math
 import os
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -3630,18 +3651,50 @@ def stylegan1_models(np, torch, ck, gen, failures):
     return launches, errs, rows, {k: statistics.median(v) for k, v in runs.items()}
 
 
-def run_cli(argv, timeout):
-    """``python argv`` from the repo root: (seconds, standard output);
-    raises with the output's tail if it exits non-zero."""
+def start_cli(argv):
+    """``python argv`` from the repo root, started; a thread collects its
+    output and the time it ends; ``finish_cli`` waits for it."""
+    import threading
     log("$ python " + " ".join(os.path.relpath(a, HERE) if a.startswith(HERE) else a
                                for a in argv))
-    t = time.time()
-    proc = subprocess.run([sys.executable] + argv, cwd=HERE, capture_output=True,
-                          text=True, timeout=timeout)
-    if proc.returncode != 0:
-        print((proc.stdout + proc.stderr)[-3000:], flush=True)
-        raise RuntimeError(f"{argv[:3]} exited {proc.returncode}")
-    return time.time() - t, proc.stdout
+    run = SimpleNamespace(argv=argv, t0=time.time(), proc=subprocess.Popen(
+        [sys.executable] + argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True))
+
+    def collect():
+        run.out, run.err = run.proc.communicate()
+        run.t1 = time.time()
+    run.thread = threading.Thread(target=collect, daemon=True)
+    run.thread.start()
+    return run
+
+
+def stop_cli(run):
+    """Kill a ``start_cli`` command that is still running."""
+    if run.proc.poll() is None:
+        run.proc.kill()
+    run.thread.join()
+
+
+def finish_cli(run, timeout, codes=(0,)):
+    """(the command's seconds, its standard output) of a ``start_cli``
+    command; raises with the output's tail if it exits with another code
+    than ``codes``, or if it runs past ``timeout`` seconds from now."""
+    run.thread.join(timeout)
+    if run.thread.is_alive():
+        stop_cli(run)
+        raise RuntimeError(f"{run.argv[:3]} ran over {timeout} s")
+    if run.proc.returncode not in codes:
+        print((run.out + run.err)[-3000:], flush=True)
+        raise RuntimeError(f"{run.argv[:3]} exited {run.proc.returncode}")
+    return run.t1 - run.t0, run.out
+
+
+def run_cli(argv, timeout, codes=(0,)):
+    """``python argv`` from the repo root: (seconds, standard output);
+    raises with the output's tail if it exits with another code than
+    ``codes``."""
+    return finish_cli(start_cli(argv), timeout, codes)
 
 
 def stacked_mnist_run(np, torch, ck, tmp, failures):
@@ -3811,7 +3864,9 @@ def pretrained_phase(np, torch, images, failures):
 
 def stylegan1_and_tools_phase(np, torch, ck, images):
     """Phase 17. Returns the launch counts of its paths, the largest error
-    of each kernel at its configurations, and the blur rows."""
+    of each kernel at its configurations, and the blur rows, prd's readings
+    and the stacked set's images and modes."""
+    from inclusivegan_torch.data.dataset import TFRecordDataset
     phase(f"17 StyleGAN1 at full width, the stacked-MNIST run through the port, prd, "
           f"pretrained networks (budget {SG1_BUDGET_S} s)")
     t_phase = time.time()
@@ -3823,6 +3878,9 @@ def stylegan1_and_tools_phase(np, torch, ck, images):
     try:
         mnist_launches, pkl, dset = stacked_mnist_run(np, torch, ck, tmp, failures)
         prd = prd_on_the_card(np, torch, ck, tmp, pkl, dset, failures)
+        # the stacked set, for phase 18's classifier
+        stacked = TFRecordDataset(dset, max_label_size="full")
+        stacked = (stacked.get_all_images(), np.argmax(stacked.get_all_labels(), axis=1))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     pretrained_phase(np, torch, images, failures)
@@ -3833,7 +3891,314 @@ def stylegan1_and_tools_phase(np, torch, ck, images):
     if secs >= SG1_BUDGET_S:
         raise RuntimeError(f"phase 17 took {secs:.1f} s, over its {SG1_BUDGET_S} s budget")
     return ({"stylegan1": sg1_launches, "stacked_mnist": mnist_launches}, errs,
-            dict(blur=rows, gstyle_images_per_s=ips, prd=prd))
+            dict(blur=rows, gstyle_images_per_s=ips, prd=prd, stacked=stacked))
+
+
+# Phase 18: the scripts that make a run's inputs, through the port alone
+# (python -m inclusivegan_torch.scripts.*): the stacked-MNIST classifier on
+# 2000 synthetic digits (60000), the CelebA attribute classifier and the
+# domain perceptual VGG on 1024 synthetic faces at 128 px (30000), each for
+# one epoch (3, 4 and 3 in scripts/run_celeba_quality_loop.sh and the
+# scripts' defaults), and the reference-pickle converter on phase 5's CelebA
+# snapshot at full width. The faces are rendered by another process started
+# before phase 17 (about 50 ms a face on one core). The converter runs while
+# the classifiers train, and the stacked-MNIST trainer while create_celeba
+# decodes the faces: neither pair shares much of the card.
+INPUTS_BUDGET_S = 120
+INPUT_DIGITS = 2000
+INPUT_FACES = 1024
+INPUT_FACES_DATASET = "celeba_synth_1024"
+TRAINER_REL_L2 = 1e-3  # the card's classifier against the CPU's, from one init
+LPIPS_CPU_RTOL = 1e-4  # lpips_distance on the card against the CPU, one file
+LPIPS_PAIRS = 16
+TRAINERS = "inclusivegan_torch.scripts."
+
+
+class Faces:
+    """Phase 18's faces: ``scripts/make_synthetic_celeba.py`` in another
+    process, started before phase 17; ``close`` (registered at exit) stops
+    it and deletes its directory."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_inputs_")
+        self.dir = os.path.join(self.tmp, "celeba")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "scripts", "make_synthetic_celeba.py"),
+             "--out", self.dir, "--num-images", str(INPUT_FACES)], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait(self) -> str:
+        t = time.time()
+        out, _ = self.proc.communicate(timeout=INPUTS_BUDGET_S)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"make_synthetic_celeba.py exited {self.proc.returncode}: "
+                               f"{out[-2000:]}")
+        log(f"{INPUT_FACES} synthetic faces rendered by another process in "
+            f"{time.time() - self.t0:.1f} s since before phase 17, {time.time() - t:.1f} s "
+            f"of it waited for here")
+        return self.dir
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def trainer_lines(out, smi):
+    """Log a trainer's epoch lines; returns its images/s per epoch, over all
+    steps and after the first."""
+    rates = []
+    for line in out.splitlines():
+        if line.startswith("epoch "):
+            log(f"  {line}" + (f" ({smi})" if "images/s" in line else ""))
+            if "images/s" in line:
+                rates.append([float(v) for v in re.findall(r"([0-9.]+) images/s", line)])
+    return rates
+
+
+def flat_rel_l2(np, got, want):
+    a = np.concatenate([np.ravel(got[k]) for k in sorted(want)])
+    b = np.concatenate([np.ravel(want[k]) for k in sorted(want)])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def classifiers_on_the_card(np, torch, tmp, faces_dir, stacked, smi, failures):
+    """18(a) and (b): both classifiers trained on the card by their
+    commands, each held against the same trainer on the CPU from the same
+    init, and read back by the metrics' classes."""
+    from inclusivegan_torch.data.dataset import TFRecordDataset
+    from inclusivegan_torch.models import feature_nets as fn
+    from inclusivegan_torch.scripts import train_attr_classifier, train_mnist_classifier
+    from inclusivegan_torch.scripts._train import layers, numpy_leaf
+    readings = {}
+
+    def cpu_reference(name, npz, train, *args, **kwargs):
+        t = time.time()
+        params = train(*args, device="cpu", log=lambda line: None, **kwargs)
+        want = {f"{k}_{leaf}": numpy_leaf(v) for k, p in layers(params).items()
+                for leaf, v in p.items()}
+        got = dict(np.load(npz))
+        rel = flat_rel_l2(np, got, want)
+        log(f"{name}: the card's parameters against the same trainer on the CPU from the "
+            f"same init: relative L2 {rel:.3e} (limit {TRAINER_REL_L2:g}; the CPU run "
+            f"{time.time() - t:.1f} s)")
+        if sorted(got) != sorted(want) or not rel <= TRAINER_REL_L2:
+            failures.append(f"{name}: the card's parameters are {rel:.3e} from the CPU's")
+        return rel
+
+    # (a) the stacked-MNIST classifier
+    mnist = os.path.join(tmp, "mnist")
+    run_cli([os.path.join(HERE, "scripts", "make_synthetic_mnist.py"), "--out", mnist,
+             "--num-images", str(INPUT_DIGITS), "--seed", "0"], 60)
+    npz = os.path.join(tmp, "stacked_mnist_classifier.npz")
+    mnist_run = start_cli(["-m", TRAINERS + "train_mnist_classifier", "--mnist-dir", mnist,
+                           "--out", npz, "--epochs", "1"])
+    data_dir = os.path.join(tmp, "datasets")
+    dset = os.path.join(data_dir, INPUT_FACES_DATASET)
+    try:
+        secs, _ = run_cli(["-m", "inclusivegan_torch.dataset_tool", "create_celeba", dset,
+                           faces_dir], 60)
+    except BaseException:
+        stop_cli(mnist_run)
+        raise
+    log(f"create_celeba of {INPUT_FACES} faces: {secs:.1f} s")
+    secs, out = finish_cli(mnist_run, INPUTS_BUDGET_S)
+    log(f"train_mnist_classifier, 1 epoch of {INPUT_DIGITS} digits: {secs:.1f} s")
+    rates = trainer_lines(out, smi)
+    images, labels = train_mnist_classifier.load_mnist(mnist)
+    rel_a = cpu_reference("train_mnist_classifier", npz, train_mnist_classifier.train,
+                          images, labels, fn.init_mnist_classifier(0), epochs=1)
+    clf = fn.StackedMNISTClassifier(weights_path=npz)
+    modes = clf.modes(np.array(stacked[0]))
+    hit = float(np.mean(modes == stacked[1]))
+    log(f"StackedMNISTClassifier reads it back ({clf.mode}): {len(np.unique(modes))} modes "
+        f"on phase 17's {len(modes)} stacked images, {hit:.2%} of them its label's")
+    if clf.mode != "pretrained" or not (modes.min() >= 0 and modes.max() < 1000):
+        failures.append(f"the stacked-MNIST classifier read back: {clf.mode}, modes "
+                        f"{modes.min()}..{modes.max()}")
+    readings["mnist"] = dict(seconds=secs, images_per_s=rates, rel_l2_cpu=rel_a,
+                             modes=int(len(np.unique(modes))), label_share=hit)
+
+    # (b) the CelebA attribute classifier on the dataset tool's set
+    npz = os.path.join(tmp, "celeba_attr_classifier.npz")
+    secs, out = run_cli(["-m", TRAINERS + "train_attr_classifier", "--data-dir", data_dir,
+                         "--dataset", INPUT_FACES_DATASET, "--out", npz, "--epochs", "1"],
+                        INPUTS_BUDGET_S)
+    log(f"train_attr_classifier, 1 epoch: {secs:.1f} s")
+    rates = trainer_lines(out, smi)
+    ds = TFRecordDataset(dset, max_label_size="full")
+    faces, attrs = ds.get_all_images(), ds.get_all_labels()
+    rel_b = cpu_reference("train_attr_classifier", npz, train_attr_classifier.train,
+                          faces, attrs, fn.init_attr_classifier(0), epochs=1)
+    clf = fn.CelebAAttrClassifier(weights_path=npz)
+    probs = clf(np.array(faces[:64]))
+    log(f"CelebAAttrClassifier reads it back ({clf.mode}): probabilities {probs.shape}, "
+        f"{probs.min():.4f}..{probs.max():.4f}")
+    if clf.mode != "pretrained" or probs.shape != (64, 40) or not (
+            np.isfinite(probs).all() and probs.min() >= 0 and probs.max() <= 1):
+        failures.append("the attribute classifier read back gives no probabilities")
+    readings["attr"] = dict(seconds=secs, images_per_s=rates, rel_l2_cpu=rel_b)
+    return readings, data_dir, faces
+
+
+def perceptual_on_the_card(np, torch, tmp, data_dir, faces, smi, failures):
+    """18(c): the domain perceptual VGG trained and calibrated on the card
+    by its command; its npz (or ``.rejected`` file, exit 3) read by
+    ``load_lpips_params`` on the card and on the CPU."""
+    from inclusivegan_torch.models.lpips import load_lpips_params, lpips_distance
+    npz = os.path.join(tmp, "perceptual_vgg.npz")
+    secs, out = run_cli(["-m", TRAINERS + "train_perceptual_vgg", "--data-dir", data_dir,
+                         "--dataset", INPUT_FACES_DATASET, "--out", npz, "--label-mode",
+                         "attrs", "--epochs", "1", "--batch", "64"], INPUTS_BUDGET_S,
+                        codes=(0, 3))
+    log(f"train_perceptual_vgg --label-mode attrs, 1 epoch, minibatch 64: {secs:.1f} s")
+    rates = trainer_lines(out, smi)
+    for line in out.splitlines():
+        if line.startswith(("calibration", "similar-attr", "distinct-", "same-", "black-",
+                            "mean-blob", "geometry", "WARNING", "saved")):
+            log(f"  {line}")
+    saved = out.strip().splitlines()[-1].split("saved ", 1)[-1]
+    if saved not in (npz, npz[:-4] + ".rejected.npz") or not os.path.exists(saved):
+        failures.append(f"train_perceptual_vgg saved no npz: {saved}")
+        return {}
+    scale = float(np.load(saved)["lin_conv1_2"][0]) * 64
+    x0 = torch.from_numpy(faces[:LPIPS_PAIRS])
+    x1 = torch.from_numpy(faces[LPIPS_PAIRS:2 * LPIPS_PAIRS])
+    with torch.no_grad():
+        d = lpips_distance(load_lpips_params(saved), x0.cuda(), x1.cuda()).cpu().numpy()
+        want = lpips_distance(load_lpips_params(saved, device="cpu"), x0, x1).numpy()
+    err = float(np.max(np.abs(d - want) / np.abs(want)))
+    log(f"load_lpips_params({os.path.basename(saved)}): scale x{scale:.4f}; lpips_distance "
+        f"of {LPIPS_PAIRS} face pairs on the card, mean {d.mean():.4f}, against the CPU's "
+        f"largest relative difference {err:.2e} (limit {LPIPS_CPU_RTOL:g})")
+    if not (np.isfinite(d).all() and d.min() > 0 and err <= LPIPS_CPU_RTOL):
+        failures.append(f"lpips_distance of the trained net on the card: {d.min()}, {err}")
+    return dict(seconds=secs, images_per_s=rates, scale=scale, rejected=saved != npz,
+                mean_distance=float(d.mean()))
+
+
+def reference_vars(np, snap):
+    """A snapshot's trees under the reference's variable names, as
+    ``scripts/dump_reference_vars.py`` writes them from a reference pickle:
+    ``<net>/G_mapping/...``, ``<net>/G_synthesis/...`` (noise images among
+    them), ``<net>/dlatent_avg`` and ``D/...``."""
+    from inclusivegan_torch.snapshot import _flatten
+    dump = {}
+    for net in ("G", "Gs"):
+        p = snap[net]["params"]
+        for scope, tree in (("G_mapping", p["mapping"]), ("G_synthesis", p["synthesis"]),
+                            ("G_synthesis", p["noise"])):
+            dump.update({f"{net}/{scope}/" + k.replace(".", "/"): v for k, v in _flatten(tree)})
+        dump[f"{net}/dlatent_avg"] = np.asarray(p["dlatent_avg"])
+    dump.update({"D/" + k.replace(".", "/"): v for k, v in _flatten(snap["D"]["params"])})
+    return dump
+
+
+def without_dtype(config):
+    return {k: without_dtype(v) if isinstance(v, dict) else v
+            for k, v in config.items() if k != "dtype"}
+
+
+def start_conversion(np, tmp):
+    """18(d), first half: phase 5's CelebA snapshot flattened into the
+    reference's variable names, and the converter's command started."""
+    from inclusivegan_torch.snapshot import read_snapshot
+    snap = read_snapshot(NETWORK)
+    dump = reference_vars(np, snap)
+    vars_npz, out_pkl = os.path.join(tmp, "vars.npz"), os.path.join(tmp, "converted.pkl")
+    np.savez(vars_npz, **dump)
+    label_size = snap["G"]["config"]["mapping"]["label_size"]
+    run = start_cli(["-m", TRAINERS + "convert_reference_pkl", vars_npz, out_pkl,
+                     "--resolution", "128", "--label-size", str(label_size)])
+    return run, snap, len(dump), out_pkl
+
+
+def converted_reference(np, torch, ck, conversion, images, failures):
+    """18(d), second half: the converted snapshot's trees and configs are
+    the snapshot's (but for the stored compute dtype), the loader's Gs holds
+    phase 5's network bit for bit and draws phase 5's images within its
+    limits, and a G forward, generate-images and a D forward launch the
+    kernels as derived. Returns those launches."""
+    from inclusivegan_torch import pretrained_networks
+    from inclusivegan_torch.run_generator import generate_images
+    from inclusivegan_torch.snapshot import _flatten, load_snapshot, read_snapshot
+    run, snap, n_vars, out_pkl = conversion
+    secs, _ = finish_cli(run, INPUTS_BUDGET_S)
+    log(f"convert_reference_pkl of {n_vars} variables: {secs:.1f} s, while the "
+        f"classifiers trained")
+    conv = read_snapshot(out_pkl)
+    trees = configs = True
+    for net in ("G", "Gs", "D"):
+        a, b = dict(_flatten(conv[net]["params"])), dict(_flatten(snap[net]["params"]))
+        trees &= a.keys() == b.keys() and all(
+            a[k].dtype == v.dtype and np.array_equal(a[k], v) for k, v in b.items())
+        configs &= without_dtype(conv[net]["config"]) == without_dtype(snap[net]["config"])
+    G, D, Gs = pretrained_networks.load_networks(out_pkl)
+    want = load_snapshot(NETWORK, device="cuda").state_dict()
+    got = Gs.state_dict()
+    loaded = set(got) == set(want) and all(
+        got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in want.items())
+    del want, got
+    z = torch.randn(MINIBATCH, G.mapping.latent_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(18))
+    ck.reset_launches()
+    with torch.no_grad():
+        G(z, randomize_noise=False)
+        drawn = generate_images(Gs, NUM_IMAGES, MINIBATCH, device="cuda")
+        x = torch.from_numpy(drawn[:MINIBATCH]).cuda().permute(0, 3, 1, 2).float() / 127.5 - 1
+        scores, _ = D(x)
+    torch.cuda.synchronize()
+    launches = dict(ck.launches)
+    blocks = D.resolution_log2 - 2
+    fwd = forward_launches(G, 1 + math.ceil(NUM_IMAGES / MINIBATCH))
+    expected = {"bias_lrelu": fwd["bias_lrelu"] + 1 + 2 * blocks + 2, "bias_lrelu_grad": 0,
+                "upfirdn2d": fwd["upfirdn2d"] + 2 * blocks, "upfirdn2d_transposed": 0}
+    levels, frac = compare_images(np, drawn, images)
+    finite = bool(torch.isfinite(scores).all())
+    log(f"converted snapshot: G, Gs and D trees phase 5's bit for bit {trees}; configs the "
+        f"snapshot's but for the stored compute dtype {configs}; the loader's Gs phase 5's "
+        f"network bit for bit {loaded}, drawing phase 5's images within {levels} levels, "
+        f"{frac:.4%} of values (limits {IMG_MAX_LEVELS}, {IMG_MAX_FRACTION:.1%}); D's scores "
+        f"finite {finite}")
+    check_launches("converted snapshot: G forward, generate-images, D forward", launches,
+                   expected, failures)
+    if not (trees and configs and loaded and finite and levels <= IMG_MAX_LEVELS
+            and frac <= IMG_MAX_FRACTION):
+        failures.append("the converted snapshot is not phase 5's network")
+    return launches
+
+
+def inputs_phase(np, torch, ck, images, stacked, faces, smi):
+    """Phase 18. Returns the launches of the converted snapshot's path and
+    the trainers' readings."""
+    phase(f"18 the scripts that make a run's inputs, through the port (budget "
+          f"{INPUTS_BUDGET_S} s)")
+    t_phase = time.time()
+    failures = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inputs_")
+    conversion = None
+    try:
+        faces_dir = faces.wait()
+        conversion = start_conversion(np, tmp)
+        readings, data_dir, face_images = classifiers_on_the_card(
+            np, torch, tmp, faces_dir, stacked, smi, failures)
+        readings["perceptual"] = perceptual_on_the_card(np, torch, tmp, data_dir,
+                                                        face_images, smi, failures)
+        launches = converted_reference(np, torch, ck, conversion, images, failures)
+    finally:
+        if conversion is not None:
+            stop_cli(conversion[0])
+        shutil.rmtree(tmp, ignore_errors=True)
+        faces.close()
+    secs = time.time() - t_phase
+    log(f"phase 18 took {secs:.1f} s (budget {INPUTS_BUDGET_S} s)")
+    if failures:
+        raise RuntimeError("phase 18 failed: " + "; ".join(failures))
+    if secs >= INPUTS_BUDGET_S:
+        raise RuntimeError(f"phase 18 took {secs:.1f} s, over its {INPUTS_BUDGET_S} s budget")
+    return launches, readings
 
 
 def main() -> int:
@@ -4094,6 +4459,9 @@ def main() -> int:
         r["launches_by_path"].update({f"data_parallel {path}": counts[r["name"]]
                                       for path, counts in dp_launches.items()})
     gc.collect()
+    # phase 18's faces, rendered by another process while phase 17 runs
+    faces = Faces()
+    atexit.register(faces.close)
     sg1_launches, sg1_errs, sg1_readings = stylegan1_and_tools_phase(np, torch, ck, images)
     for r in records:
         # the top-level launches and timings stay the projector's (phase 14);
@@ -4104,6 +4472,12 @@ def main() -> int:
         blur = [row for row in sg1_readings["blur"] if row["config"].split()[1] == r["name"]]
         if blur:
             r["stylegan1_blur"] = blur
+    gc.collect()
+    conv_launches, _ = inputs_phase(np, torch, ck, images, sg1_readings["stacked"], faces, smi)
+    for r in records:
+        # phase 18's trainers launch no kernel (cuDNN's convolutions, no
+        # bias_lrelu); the converted snapshot's forwards do
+        r["launches_by_path"]["converted_reference"] = conv_launches[r["name"]]
     log(f"the whole smoke took {time.time() - T0:.1f} s")
 
     print(smi, flush=True)

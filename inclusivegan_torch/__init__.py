@@ -15,5 +15,7 @@ through two
 hand-written CUDA kernels, bias+lrelu and upfirdn2d (``ops/csrc``), with
 their backward passes. Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; on CPU tensors every op takes its plain
-PyTorch version. Importing the package builds no kernel.
+PyTorch version. Importing the package builds no kernel. The scripts that
+make a run's inputs (the metrics' classifiers, the domain perceptual VGG,
+the reference-pickle converter) are ``scripts``, each run with ``python -m``.
 """

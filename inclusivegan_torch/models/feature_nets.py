@@ -36,6 +36,9 @@ from .lpips import (_preprocess, _vgg_features, lpips_params_from_numpy, random_
                     read_lpips_tree)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+# the port's trainers of the classifiers' npz files
+_TRAIN_MNIST = "inclusivegan_torch.scripts.train_mnist_classifier"
+_TRAIN_ATTR = "inclusivegan_torch.scripts.train_attr_classifier"
 
 
 def _as_tensor(images, device) -> torch.Tensor:
@@ -141,16 +144,22 @@ def mnist_classifier_params_from_numpy(tree, device="cuda") -> Params:
     return _layers_from_numpy(tree, _MNIST_SHAPES, device)
 
 
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``, whose gradient at 0 is one half: MNIST's zero
+    background meets zero biases at a fresh init."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def mnist_classifier_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x [N, 1, 32, 32] in [0, 1] -> logits [N, 10]. The 5x5 SAME convs pad
     2 on each side."""
     def conv(x, p):
-        return torch.clamp_min(F.conv2d(x, p["w"], p["b"], padding=2), 0)
+        return _relu(F.conv2d(x, p["w"], p["b"], padding=2))
 
     x = F.max_pool2d(conv(x, params["conv1"]), 2, 2)
     x = F.max_pool2d(conv(x, params["conv2"]), 2, 2)
     x = x.reshape(x.shape[0], -1)
-    x = torch.clamp_min(x @ params["dense1"]["w"] + params["dense1"]["b"], 0)
+    x = _relu(x @ params["dense1"]["w"] + params["dense1"]["b"])
     return x @ params["dense2"]["w"] + params["dense2"]["b"]
 
 
@@ -177,10 +186,10 @@ class StackedMNISTClassifier:
             else:
                 print(f"WARNING: stacked-MNIST classifier weights not found at "
                       f"{weights_path!r}; mode_counts/KL will use an UNTRAINED "
-                      f"classifier (train one with scripts/train_mnist_classifier.py)",
+                      f"classifier (train one with python -m {_TRAIN_MNIST})",
                       file=sys.stderr)
                 tree = init_mnist_classifier(seed)
-                self.mode = "random-init (train with scripts/train_mnist_classifier.py)"
+                self.mode = f"random-init (train with python -m {_TRAIN_MNIST})"
         self.device = torch.device(device)
         self.params = mnist_classifier_params_from_numpy(tree, self.device)
 
@@ -264,9 +273,9 @@ class CelebAAttrClassifier:
             else:
                 print(f"WARNING: CelebA attribute classifier weights not found at "
                       f"{weights_path!r}; LS will use an UNTRAINED scorer (train one "
-                      f"with scripts/train_attr_classifier.py)", file=sys.stderr)
+                      f"with python -m {_TRAIN_ATTR})", file=sys.stderr)
                 tree = init_attr_classifier(seed)
-                self.mode = "random-init (train with scripts/train_attr_classifier.py)"
+                self.mode = f"random-init (train with python -m {_TRAIN_ATTR})"
         self.device = torch.device(device)
         self.params = attr_classifier_params_from_numpy(tree, self.device)
 

@@ -20,7 +20,16 @@ index. ``--num-gpus N`` trains data-parallel on N cards, one process each
 whose name ends ``-Ndev``; more cards than are present raise before the run
 dir is made. ``--device cpu --num-gpus N`` runs N gloo ranks on the CPU.
 
-The CelebA production run (``scripts/run_celeba_quality_loop.sh``):
+The CelebA production run (``scripts/run_celeba_quality_loop.sh``): its
+attribute classifier [1/6] and domain perceptual net [1b/6] first,
+
+    python -m inclusivegan_torch.scripts.train_attr_classifier --data-dir DIR \\
+        --dataset NAME --out metrics_weights/celeba_attr_classifier.npz --epochs 4
+    python -m inclusivegan_torch.scripts.train_perceptual_vgg --data-dir DIR \\
+        --dataset NAME --out /tmp/exp/celeba_perceptual_vgg.npz --epochs 3 --batch 64
+
+then the training [2/6], with that npz as ``--lpips-weights``
+(``artifacts/celeba_perceptual_vgg.npz`` is the one the CelebA run made):
 
     python -m inclusivegan_torch.run_training --data-dir DIR --dataset NAME \\
         --config config-e-Gskip-Dresnet --num-gpus 1 --data-size 30000 \\

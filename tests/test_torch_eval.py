@@ -157,9 +157,14 @@ def test_classifiers_default_paths_and_environment(monkeypatch, tmp_path):
     assert tfn.CelebAAttrClassifier(device="cpu").mode == "pretrained"
     monkeypatch.setenv("INCLUSIVEGAN_TPU_MNIST_CLASSIFIER", str(tmp_path / "none.npz"))
     monkeypatch.setenv("INCLUSIVEGAN_TPU_ATTR_CLASSIFIER", str(tmp_path / "none.npz"))
-    for cls, jcls in ((tfn.StackedMNISTClassifier, jfn.StackedMNISTClassifier),
-                      (tfn.CelebAAttrClassifier, jfn.CelebAAttrClassifier)):
-        assert cls(device="cpu").mode == jcls().mode != "pretrained"
+    # without weights both are untrained; the port names its own trainer
+    # where the JAX package names its script
+    for cls, jcls, script in (
+            (tfn.StackedMNISTClassifier, jfn.StackedMNISTClassifier, "train_mnist_classifier"),
+            (tfn.CelebAAttrClassifier, jfn.CelebAAttrClassifier, "train_attr_classifier")):
+        assert jcls().mode == f"random-init (train with scripts/{script}.py)"
+        assert cls(device="cpu").mode == (
+            f"random-init (train with python -m inclusivegan_torch.scripts.{script})")
 
 
 @pytest.mark.parametrize("size", [16, 17, 20])

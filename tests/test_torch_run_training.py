@@ -166,3 +166,50 @@ def test_vestigial_configs_rejected(tmp_path):
     with pytest.raises(SystemExit, match="vestigial"):
         run_training.main(["--data-dir", str(tmp_path), "--dataset", "x",
                            "--config", "config-b", "--result-dir", str(tmp_path)])
+
+
+def test_select_best_snapshot_reads_the_ports_metric_file(monkeypatch, tmp_path):
+    """The repository's jax-free ``scripts/select_best_snapshot.py`` and
+    ``scripts/record_quality_digest.py`` read the ``metric-fid30k.txt``
+    lines that the port's ``MetricBase.run`` appends in a run dir at each
+    network snapshot."""
+    import json
+    import os
+    import subprocess
+
+    from inclusivegan_torch.metrics import metric_base
+
+    class Fixed(metric_base.MetricBase):
+        def _evaluate(self, sampler, dataset_args, data_dir, value=None):
+            self._report_result(value)
+
+    class NoSampler:  # the metric reads no image
+        rank = 0
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(metric_base, "GsSampler", NoSampler)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run_dir = tmp_path / "00000-stylegan2-celeba_synth-1dev"
+    run_dir.mkdir()
+    for kimg, fid in ((0, 40.5), (12, 8.25), (24, 9.75)):
+        pkl = run_dir / f"network-snapshot-{kimg:06d}.pkl"
+        pkl.write_bytes(b"")
+        Fixed("fid30k").run(str(pkl), run_dir=str(run_dir), dataset_args={"tfrecord_dir": "x"},
+                            device="cpu", value=fid)
+    (run_dir / "network-final.pkl").write_bytes(b"")
+    best = subprocess.run([sys.executable, os.path.join(root, "scripts", "select_best_snapshot.py"),
+                           str(run_dir), "--metric", "fid30k"],
+                          capture_output=True, text=True, check=True)
+    assert best.stdout.strip() == str(run_dir / "network-snapshot-000012.pkl")
+    digest = tmp_path / "digest.json"
+    subprocess.run([sys.executable, os.path.join(root, "scripts", "record_quality_digest.py"),
+                    str(run_dir), "--out", str(digest)], capture_output=True, check=True)
+    records = json.loads(digest.read_text())["metrics"]["fid30k"]["records"]
+    assert [(r["snapshot"], r["columns"]) for r in records] == [
+        (f"network-snapshot-{k:06d}", {"fid30k": v})
+        for k, v in ((0, 40.5), (12, 8.25), (24, 9.75))]
