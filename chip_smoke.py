@@ -181,15 +181,14 @@ Phases, each logged with the seconds since start:
      forward and backward against the counts derived from the model; G's
      images/s with the kernels and the plain versions in turns; the blur at
      [4,16,1024,1024] and its transpose in float32 and bf16 (ms, plain,
-     bound, cuDNN's depthwise conv2d); (b) the stacked-MNIST run through the
+     bound, cuDNN's depthwise conv2d); (b) the stacked-MNIST set through the
      port alone, cut in depth only: ``scripts/make_synthetic_mnist.py``,
      ``python -m inclusivegan_torch.dataset_tool create_mnistrgb`` (then
      ``display``, ``compare`` with itself and ``extract``, read back by
-     ``read_png`` equal to the records), ``run_training`` with the README's
-     config at 32 px for 4 iterations and one rebuild, with its launch
-     counts, and ``run_metrics --metrics mode_counts_24k,KL24k``; (c)
-     ``prd_from_image_folders`` on 256 generated and 256 real images, F8 and
-     F1/8 in [0, 1], the plot read back, then again in this process: the
+     ``read_png`` equal to the records), on which phase 19 runs next; (c)
+     ``prd_from_image_folders`` on 256 images of phase 19's snapshot and
+     256 real images, F8 and F1/8 in [0, 1], the plot read back, then again
+     in this process: the
      embeddings from the cache and the k-means' launches on the card; (d)
      ``pretrained_networks.load_networks`` twice: the cached objects, the
      Gs phase 5's network bit for bit, drawing phase 5's images within
@@ -213,18 +212,48 @@ Phases, each logged with the seconds since start:
      .load_networks``' Gs phase 5's network drawing phase 5's images within
      phase 5's limits, and a G forward, generate-images and a D forward
      launching the kernels as derived.
+ 19. the stacked-MNIST mode-coverage experiment as the repository ran it,
+     through the port, run inside phase 17 between (b) and (c), on its
+     stacked set, at full width (the 32 px config-e-Gskip-Dresnet of
+     ``README.md``, bf16, minibatch 32, 10 samples per real, a 512-dim
+     projection), cut in depth only (one epoch of MNIST_STACKED images:
+     total_kimg 2): (a) ``python -m inclusivegan_torch.scripts.
+     exp_stacked_mode_coverage`` in this process, with the launch counts set
+     to 0 just before and read just after and held to the counts derived per
+     phase, iteration, rebuild and metric; its run dir's files, one
+     checkpoint, and one ``mode_counts_24k`` line at the full 24576 samples
+     read by the watchdog's own pattern (count in [1, 1000], KL finite); the
+     seconds per iteration, of the rebuild of 24320 candidates and of the
+     metric; (b) ``scripts/mirror_best_checkpoint.py --once``, unchanged: the
+     fp16 weights, the ``BEST.json`` stamp and the backed-up step dir with
+     ``state.pt``; (c) ``scripts/restore_best_weights.py``, unchanged, on the
+     mirror: the port's ``load_snapshot`` reads its snapshot, equal to (a)'s
+     after an fp16 round trip, and its stub log gives kimg 2; (d) the port's
+     ``eval_artifact`` on the mirror (its paths in the phase's temporary
+     directory), on a thread: its record, its count within EXP_COUNT_LIMIT
+     and its KL within EXP_KL_LIMIT of (a)'s in-training reading; (e)
+     ``scripts/watchdog_mode_coverage.py``, unchanged, on a thread beside
+     (c) and (d), supervising a run dir whose trainer vanished before its
+     first snapshot: it relaunches the experiment once (``--max-relaunches
+     1``) from (b)'s backup with ``--resume-staleness 1``, to total_kimg 4
+     (the relaunch resumes at 2048 images, prints the staleness override and
+     rebuilds as staleness 1 does), and exits when that run ends cleanly;
+     then ``--resume-pkl`` from (c)'s snapshot with ``--resume-rampup-kimg
+     1 --resume-g-from-gs`` for 4 iterations: its first learning rates 0, the
+     EMA frozen, G starting equal to the snapshot's Gs.
 The build must take under 60 s, phases 3-6 under 180 s, phases 7-11 under
 300 s, phase 12 under 240 s, phase 13 under 300 s, phase 14 under 150 s,
-phase 15 under 150 s, phase 16 under 120 s, phase 17 under 150 s and phase
-18 under 120 s; a run over any budget fails. Any failure raises and
+phase 15 under 150 s, phase 16 under 120 s, phase 17 under 150 s (without
+phase 19's seconds), phase 18 under 120 s and phase 19 under 150 s; a run
+over any budget fails. Any failure raises and
 the script exits non-zero. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Each kernel's record takes its
 ``launches`` and its timings (shape, ms, plain, bound, library) from one
 path, the IvOM projector of phase 14; the timing of phase 6 or 11 stands
 under ``earlier_timing``, and every path's launches, phase 15's
 ``run_training --knn-backend dci``, phase 16's ranks and phase 17's
-``stylegan1`` and ``stacked_mnist`` and phase 18's ``converted_reference``
-among them, under ``launches_by_path``;
+``stylegan1``, phase 19's ``mode_coverage`` and phase 18's
+``converted_reference`` among them, under ``launches_by_path``;
 the upfirdn2d records carry phase 17's blur rows as ``stylegan1_blur``.
 """
 
@@ -3475,28 +3504,22 @@ def data_parallel_phase(np, torch, ck):
     return paths
 
 
-# Phase 17: StyleGAN1 at full width, the stacked-MNIST run through the port
-# alone (dataset tool, training CLI, mode counts), prd on the card and the
+# Phase 17: StyleGAN1 at full width, the stacked-MNIST set through the port's
+# dataset tool (phase 19 trains on it), prd on the card and the
 # pretrained-network loader. StyleGAN1 is fresh from a seed: GStyle.create()
 # (1024 px) and DBasic at 1024 px with fmap_base 8192, minibatch 4. The
-# stacked-MNIST run is cut in depth only: 2000 synthetic digits
-# (scripts/make_synthetic_mnist.py), 2400 stacked images (240000), 4
-# iterations and one rebuild of 2400 candidates (--num-samples-factor 1 of
-# 10), mode counts and KL at MNIST_IMAGES images (24576); prd on 256 images
-# of each folder (50000).
+# stacked set is cut in depth only: 2000 synthetic digits
+# (scripts/make_synthetic_mnist.py, 60000) and MNIST_STACKED stacked images
+# (240000), a multiple of twice phase 19's minibatch of 32, as the loop
+# requires; prd on 256 images of each folder (50000).
 SG1_BUDGET_S = 150
 SG1_MB = 4
 SG1_D = dict(resolution=1024, num_channels=3, fmap_base=8192)
 SG1_BLUR_SHAPE = (4, 16, 1024, 1024)
 SG1_LODS = (0.0, 1.5)
 MNIST_DIGITS = 2000
-MNIST_STACKED = 2400
-MNIST_DATASET = "stacked_mnist_2400"
-MNIST_ITERS = 4
-MNIST_CLI_FLAGS = ["--config", "config-e-Gskip-Dresnet", "--num-gpus", "1",
-                   "--data-size", str(MNIST_STACKED), "--num-samples-factor", "1",
-                   "--candidate-batch-size", "1024", "--lpips-weights", LPIPS_WEIGHTS,
-                   "--metrics", "none", "--smoke-test-max-iters", str(MNIST_ITERS)]
+MNIST_STACKED = 2432
+MNIST_DATASET = f"stacked_mnist_{MNIST_STACKED}"
 PRD_IMAGES = 256
 
 
@@ -3697,12 +3720,10 @@ def run_cli(argv, timeout, codes=(0,)):
     return finish_cli(start_cli(argv), timeout, codes)
 
 
-def stacked_mnist_run(np, torch, ck, tmp, failures):
-    """17(b). Returns the launches of the training CLI and its run dir."""
+def stacked_mnist_set(np, tmp, failures):
+    """17(b): the stacked-MNIST set through the port's dataset tool, which
+    phase 19 trains on. Returns its data dir and its path."""
     from inclusivegan_torch.data.dataset import TFRecordDataset
-    from inclusivegan_torch.metrics.metric_defaults import metric_defaults
-    from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
-    from inclusivegan_torch.utils.easydict import EasyDict
     from inclusivegan_torch.utils.misc import read_png
     mnist, data_dir = os.path.join(tmp, "mnist"), os.path.join(tmp, "datasets")
     dset = os.path.join(data_dir, MNIST_DATASET)
@@ -3731,44 +3752,7 @@ def stacked_mnist_run(np, torch, ck, tmp, failures):
     if not np.array_equal(back, recs):
         failures.append("extract's PNGs read back differ from the records")
 
-    root = os.path.join(tmp, "results")
-    argv = ["--data-dir", data_dir, "--dataset", MNIST_DATASET, "--result-dir", root] \
-        + MNIST_CLI_FLAGS
-    log("cut in depth only: " + "; ".join([
-        f"{MNIST_DIGITS} synthetic digits, {MNIST_STACKED} stacked images (240000)",
-        f"{MNIST_ITERS} iterations, one rebuild of {MNIST_STACKED} candidates "
-        f"(--num-samples-factor 1 of 10)", f"mode counts and KL at {MNIST_IMAGES} images "
-        f"(24576)", "--lpips-weights artifacts/celeba_perceptual_vgg.npz, as the card's "
-        "copy leaves artifacts/perceptual_vgg.npz out"]))
-    _, launches, secs, _ = run_in_process(torch, ck, "inclusivegan_torch.run_training", argv)
-    run_dir, _ = read_run_log(root)
-    check_loop_run(run_dir, f"stacked-MNIST run_training, {MNIST_ITERS} iterations, "
-                   f"{secs:.1f} s", failures)
-    G32 = GMain.create(**MNIST_G_CONFIG)
-    D32 = Discriminator(**MNIST_D_CONFIG)
-    per_phase = expected_launches(G32, D32)
-    fwd = forward_launches(G32, math.ceil(MNIST_STACKED / 1024))
-    expected = {k: MNIST_ITERS * (per_phase["g_main"][k] + per_phase["d_main"][k])
-                + per_phase["g_reg"][k] + per_phase["d_reg"][k] + fwd.get(k, 0)
-                for k in KERNELS}
-    check_launches("stacked-MNIST run_training", launches, expected, failures)
-
-    pkl = os.path.join(run_dir, "network-final.pkl")
-    mcuts = {n: EasyDict(metric_defaults[n], num_images=MNIST_IMAGES)
-             for n in ("mode_counts_24k", "KL24k")}
-    res_m, m_launches, m_s, _ = run_in_process(
-        torch, ck, "inclusivegan_torch.run_metrics",
-        ["--network", pkl, "--metrics", "mode_counts_24k,KL24k", "--classifier-weights",
-         MNIST_WEIGHTS, "--data-dir", data_dir, "--dataset", MNIST_DATASET,
-         "--result-dir", os.path.join(tmp, "metrics")], mcuts)
-    check_launches("stacked-MNIST run_metrics mode_counts_24k,KL24k", m_launches,
-                   dict(forward_launches(G32, 2 * MNIST_IMAGES // 32), bias_lrelu_grad=0,
-                        upfirdn2d_transposed=0), failures)
-    log(f"stacked-MNIST run_metrics mode_counts_24k,KL24k: {m_s:.3f} s; {res_m}")
-    if not (1 <= res_m["mode_counts_24k"] <= 1000 and math.isfinite(res_m["KL24k"])
-            and "mode_counts_24k_untrained_classifier" not in res_m):
-        failures.append(f"stacked-MNIST mode counts and KL: {res_m}")
-    return launches, pkl, dset
+    return data_dir, dset
 
 
 def prd_on_the_card(np, torch, ck, tmp, pkl, dset, failures):
@@ -3862,12 +3846,15 @@ def pretrained_phase(np, torch, images, failures):
                         "or other images")
 
 
-def stylegan1_and_tools_phase(np, torch, ck, images):
-    """Phase 17. Returns the launch counts of its paths, the largest error
-    of each kernel at its configurations, and the blur rows, prd's readings
-    and the stacked set's images and modes."""
+def stylegan1_and_tools_phase(np, torch, ck, images, experiment):
+    """Phase 17, with phase 19 (``experiment``, called with the stacked set's
+    data dir and a temporary directory) run between its parts (b) and (c):
+    prd reads the experiment's snapshot. Phase 17's seconds leave out phase
+    19's. Returns the launch counts of its paths, the largest error of each
+    kernel at its configurations, the blur rows, prd's readings, the stacked
+    set's images and modes, and what ``experiment`` returns."""
     from inclusivegan_torch.data.dataset import TFRecordDataset
-    phase(f"17 StyleGAN1 at full width, the stacked-MNIST run through the port, prd, "
+    phase(f"17 StyleGAN1 at full width, the stacked-MNIST set through the port, prd, "
           f"pretrained networks (budget {SG1_BUDGET_S} s)")
     t_phase = time.time()
     failures = []
@@ -3876,22 +3863,27 @@ def stylegan1_and_tools_phase(np, torch, ck, images):
     sg1_launches, errs, rows, ips = stylegan1_models(np, torch, ck, gen, failures)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sg1_")
     try:
-        mnist_launches, pkl, dset = stacked_mnist_run(np, torch, ck, tmp, failures)
-        prd = prd_on_the_card(np, torch, ck, tmp, pkl, dset, failures)
+        data_dir, dset = stacked_mnist_set(np, tmp, failures)
+        t_exp = time.time()
+        exp = experiment(data_dir, tmp)
+        exp_s = time.time() - t_exp
+        log("== 17 (c), (d): prd on phase 19's snapshot, pretrained networks")
+        prd = prd_on_the_card(np, torch, ck, tmp, exp["pkl"], dset, failures)
         # the stacked set, for phase 18's classifier
         stacked = TFRecordDataset(dset, max_label_size="full")
         stacked = (stacked.get_all_images(), np.argmax(stacked.get_all_labels(), axis=1))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     pretrained_phase(np, torch, images, failures)
-    secs = time.time() - t_phase
-    log(f"phase 17 took {secs:.1f} s (budget {SG1_BUDGET_S} s)")
+    secs = time.time() - t_phase - exp_s
+    log(f"phase 17 took {secs:.1f} s without phase 19's {exp_s:.1f} s (budget "
+        f"{SG1_BUDGET_S} s)")
     if failures:
         raise RuntimeError("phase 17 failed: " + "; ".join(failures))
     if secs >= SG1_BUDGET_S:
         raise RuntimeError(f"phase 17 took {secs:.1f} s, over its {SG1_BUDGET_S} s budget")
-    return ({"stylegan1": sg1_launches, "stacked_mnist": mnist_launches}, errs,
-            dict(blur=rows, gstyle_images_per_s=ips, prd=prd, stacked=stacked))
+    return ({"stylegan1": sg1_launches}, errs,
+            dict(blur=rows, gstyle_images_per_s=ips, prd=prd, stacked=stacked), exp)
 
 
 # Phase 18: the scripts that make a run's inputs, through the port alone
@@ -4201,6 +4193,425 @@ def inputs_phase(np, torch, ck, images, stacked, faces, smi):
     return launches, readings
 
 
+# Phase 19: the stacked-MNIST mode-coverage experiment through the port, as
+# the repository ran it: python -m inclusivegan_torch.scripts.
+# exp_stacked_mode_coverage at full width (the README's 32 px
+# config-e-Gskip-Dresnet, bfloat16, minibatch 32, 10 samples per real, a
+# 512-dim projection, candidate batches of 1024) on phase 17's stacked set,
+# with mode_counts_24k at its full 24576 samples; then the host tools, which
+# run unchanged: scripts/mirror_best_checkpoint.py --once,
+# scripts/restore_best_weights.py, the port's eval_artifact, and
+# scripts/watchdog_mode_coverage.py relaunching the experiment from the
+# mirror's backup; then a --resume-pkl run from the restored snapshot. Cut in
+# depth only: MNIST_STACKED images for one epoch (240000 for 200), so
+# total_kimg 2: one tick, one image and network snapshot, one checkpoint and
+# one metric; the relaunch runs a second epoch (total_kimg 4), the --resume-pkl
+# run EXP_PKL_ITERS iterations. The LPIPS weights are the CelebA run's, of
+# the same layout, as the card's copy leaves artifacts/perceptual_vgg.npz out.
+EXP_BUDGET_S = 150
+EXP_MODULE = "inclusivegan_torch.scripts.exp_stacked_mode_coverage"
+EXP_SCRIPT = "inclusivegan_torch/scripts/exp_stacked_mode_coverage.py"
+EXP_MB = 32
+EXP_SAMPLES_FACTOR = 10
+EXP_ITERS = 64  # 16 outer iterations of 4 x 32 images pass 2000
+EXP_METRIC_IMAGES = 24576  # mode_counts_24k's, uncut
+EXP_METRIC_MB = 32
+# (d) against (a): the in-training metric reads the float32 snapshot, the
+# artifact's the fp16 mirror cast back; same latents, noise and classifier.
+# Predicted before the first run: the counts within EXP_COUNT_LIMIT modes,
+# the KLs within EXP_KL_LIMIT.
+EXP_COUNT_LIMIT = 16
+EXP_KL_LIMIT = 0.05
+EXP_PKL_ITERS = 4
+EXP_RESUME_KIMG = 1.0  # --resume-rampup-kimg of the --resume-pkl run
+
+
+def exp_flags(data_dir, root, epochs):
+    return ["--data-dir", data_dir, "--dataset", MNIST_DATASET, "--data-size",
+            str(MNIST_STACKED), "--num-epochs", str(epochs), "--minibatch", str(EXP_MB),
+            "--num-samples-factor", str(EXP_SAMPLES_FACTOR), "--init-proj-dim", "512",
+            "--candidate-batch-size", "1024", "--dtype", "bfloat16", "--classifier",
+            MNIST_WEIGHTS, "--lpips-weights", LPIPS_WEIGHTS, "--result-root", root]
+
+
+def load_tool(name):
+    """``scripts/<name>.py`` as a module, unchanged."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"tool_{name}", os.path.join(HERE, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def rebuild_points(start, iters, staleness):
+    """The iterations at which the loop rebuilds the IMLE pool, from
+    ``start`` images with no pool yet: ``IMLEOrchestrator.needs_rebuild``,
+    the staleness doubling at every rebuild after the first."""
+    points = []
+    for i in range(iters):
+        cur = start + EXP_MB * i
+        period = MNIST_STACKED * staleness
+        if not points or cur // period != max(cur - 2 * EXP_MB, 0) // period:
+            if points:
+                staleness *= 2
+            points.append(i)
+    return points
+
+
+def exp_run_dirs(root):
+    return sorted(os.path.join(root, d) for d in os.listdir(root) if re.match(r"\d{5}-", d))
+
+
+def float_leaves(tree, out=None, prefix=""):
+    """The float numpy arrays of a nested snapshot tree, by path."""
+    out = {} if out is None else out
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            float_leaves(v, out, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            float_leaves(v, out, f"{prefix}/{i}")
+    elif hasattr(tree, "dtype") and tree.dtype.kind == "f":
+        out[prefix] = tree
+    return out
+
+
+def exp_training(np, torch, ck, data_dir, root, failures):
+    """19(a). Returns the run dir, its launches and readings."""
+    from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
+    watchdog = load_tool("watchdog_mode_coverage")
+    torch.cuda.reset_peak_memory_stats()  # the tick's peak is this run's
+    _, launches, secs, metric_s = run_in_process(torch, ck, EXP_MODULE,
+                                                 exp_flags(data_dir, root, 1))
+    (run_dir,) = exp_run_dirs(root)
+    files = sorted(os.listdir(run_dir))
+    want = ["_finished.txt", "arb-fakes-000002.png", "arb-reals.png", "checkpoints", "log.txt",
+            "metric-mode_counts_24k.txt", "network-final.pkl", "network-snapshot-000002.pkl",
+            "rec-fakes-000002.png", "rec-reals.png", "stats.jsonl", "submit_config.txt"]
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    missing = [n for n in want if n not in files]
+    errors = [n for n in files if n.endswith("-error.txt")]
+    log(f"19(a) {os.path.basename(run_dir)}: {len(files)} files, checkpoints {ckpts}"
+        + (f"; missing {missing}" if missing else "") + (f"; errors {errors}" if errors else ""))
+    if missing or errors or ckpts != ["step_00002048"] or not os.path.isfile(
+            os.path.join(run_dir, "checkpoints", ckpts[-1], "state.pt")):
+        failures.append(f"19(a) run dir: missing {missing}, errors {errors}, checkpoints {ckpts}")
+    entries = watchdog.read_metrics(run_dir)
+    log(f"19(a) metric-mode_counts_24k.txt read by the watchdog's LINE_RE: {entries}")
+    if len(entries) != 1 or entries[0][0] != 2 or not 1 <= entries[0][1] <= 1000 \
+            or entries[0][2] is None or not math.isfinite(entries[0][2]):
+        failures.append(f"19(a) mode counts: {entries}")
+    count, kl = (entries[0][1], entries[0][2]) if entries else (0, float("nan"))
+
+    G32 = GMain.create(**MNIST_G_CONFIG)
+    D32 = Discriminator(**MNIST_D_CONFIG)
+    per_phase = expected_launches(G32, D32)
+    n_g_reg, n_d_reg = len(range(0, EXP_ITERS, 4)), len(range(0, EXP_ITERS, 16))
+    forwards = {"rebuild": math.ceil(MNIST_STACKED * EXP_SAMPLES_FACTOR / 1024),
+                # arb-fakes: a 32 x 32 grid in batches of 64; rec-fakes: one
+                "image snapshot": 32 * 32 // 64 + 1,
+                "metric": EXP_METRIC_IMAGES // EXP_METRIC_MB}
+    per_iter = {k: per_phase["g_main"][k] + per_phase["d_main"][k] for k in KERNELS}
+    expected = {k: EXP_ITERS * per_iter[k] + n_g_reg * per_phase["g_reg"][k]
+                + n_d_reg * per_phase["d_reg"][k]
+                + forward_launches(G32, sum(forwards.values())).get(k, 0) for k in KERNELS}
+    log(f"19(a) derived: {EXP_ITERS} iterations of {per_iter}, path-length reg "
+        f"{n_g_reg} x {per_phase['g_reg']}, R1 {n_d_reg} x {per_phase['d_reg']}, Gs forwards "
+        f"{forwards} x {forward_launches(G32, 1)}")
+    check_launches("19(a) exp_stacked_mode_coverage", launches, expected, failures)
+
+    stats = read_stats(os.path.join(run_dir, "stats.jsonl"))
+    (tick,) = [r for r in stats if "Timing/sec_per_tick" in r]
+    rebuild_s = tick["Timing/dci_rebuild_sec"]
+    iter_s = (tick["Timing/sec_per_tick"] - rebuild_s) / EXP_ITERS
+    after = {k: r[f"Timing/{k}_sec"] for r in stats for k in
+             ("image_snapshot", "snapshot", "checkpoint", "metrics") if f"Timing/{k}_sec" in r}
+    readings = dict(seconds=secs, count=count, kl=kl, sec_per_tick=tick["Timing/sec_per_tick"],
+                    rebuild_s=rebuild_s, iter_s=iter_s, metric_s=metric_s.get("mode_counts_24k"),
+                    peak_gb=tick.get("Resources/peak_device_mem_gb"), **after)
+    log(f"19(a) {secs:.1f} s in all: the tick {tick['Timing/sec_per_tick']:.3f} s, in it the "
+        f"rebuild of {MNIST_STACKED * EXP_SAMPLES_FACTOR} candidates {rebuild_s:.3f} s, so "
+        f"{iter_s:.4f} s per iteration of {EXP_MB} at 32 px in bfloat16 "
+        f"({EXP_MB / iter_s:.1f} images/s); after it " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in after.items())
+        + f"; mode_counts_24k at {EXP_METRIC_IMAGES} samples {readings['metric_s']:.3f} s "
+        f"(MetricBase.run): {count} modes, KL {kl}; peak allocated {readings['peak_gb']:.3f} GB")
+    return run_dir, launches, readings
+
+
+def exp_mirror(np, run_dir, root, tmp, count, failures):
+    """19(b): mirror_best_checkpoint.py --once. Returns the fp16 mirror, the
+    backed-up checkpoint and the command's seconds."""
+    art, bak = os.path.join(tmp, "artifacts"), os.path.join(tmp, "ckpt_backup")
+    weights = os.path.join(art, "best_weights_fp16.pkl")
+    secs, _ = run_cli([os.path.join(HERE, "scripts", "mirror_best_checkpoint.py"), "--once",
+                       "--result-root", root, "--backup-dir", bak, "--record-file",
+                       os.path.join(art, "best_mode_counts.json"), "--weights-file", weights],
+                      120)
+    best = json.load(open(os.path.join(bak, "BEST.json")))
+    stamp = json.load(open(weights + ".json"))
+    backup = os.path.join(bak, "step_00002048")
+    with open(weights, "rb") as f:
+        mirrored = pickle.load(f)
+    leaves = float_leaves({k: v for k, v in mirrored.items() if k != "mirror_meta"})
+    fp16 = all(v.dtype == np.float16 for v in leaves.values())
+    log(f"19(b) mirror_best_checkpoint.py --once: {secs:.2f} s; BEST.json {best}; "
+        f"{len(leaves)} float arrays, all float16 {fp16}; stamp {stamp}; backup "
+        f"{sorted(os.listdir(backup))}")
+    if not (best["count"] == count and best["kimg"] == 2 and best["checkpoint"] == backup
+            and os.path.isfile(os.path.join(backup, "state.pt")) and fp16 and leaves
+            and stamp["count"] == count and stamp["g_loss_batched"] is True
+            and mirrored["mirror_meta"]["src_run"] == run_dir):
+        failures.append("19(b) the mirror's record, fp16 weights or backup")
+    return weights, backup, secs
+
+
+def exp_restore(torch, run_dir, weights, tmp, count, failures):
+    """19(c): restore_best_weights.py on the mirror, read back by the port's
+    load_snapshot. Returns the restored snapshot and the command's
+    seconds."""
+    from inclusivegan_torch.training.training_loop import load_snapshot
+    from inclusivegan_torch.utils.misc import parse_kimg_time_from_log
+    restore_dir = os.path.join(tmp, "restore")
+    secs, out = run_cli([os.path.join(HERE, "scripts", "restore_best_weights.py"),
+                         "--weights-file", weights, "--out-dir", restore_dir], 60)
+    info = json.loads(out[:out.index("\n\nresume")])
+    restored = info["snapshot"]
+    _, _, got = load_snapshot(restored, device="cpu")
+    _, _, want = load_snapshot(os.path.join(run_dir, "network-snapshot-000002.pkl"),
+                               device="cpu")
+    n = mismatched = 0
+    for net in want:
+        for k, v in want[net].items():
+            w = v.half().float() if v.is_floating_point() else v
+            n += 1
+            mismatched += not (got[net][k].dtype == w.dtype and torch.equal(got[net][k], w))
+    kimg_time = parse_kimg_time_from_log(os.path.join(restore_dir, "log.txt"))
+    log(f"19(c) restore_best_weights.py: {secs:.2f} s; {info}; load_snapshot reads it: "
+        f"{n} tensors, {mismatched} differ from the snapshot's after an fp16 round trip; "
+        f"the stub log gives (kimg, s) {kimg_time}")
+    if mismatched or n == 0 or kimg_time != (2.0, 0.0) or info["count"] != count:
+        failures.append("19(c) the restored snapshot")
+    return restored, secs
+
+
+def exp_eval_artifact(weights, tmp, data_dir, result):
+    """19(d), run on a thread: the port's eval_artifact on the mirror, its
+    paths in ``tmp``. Its output is not redirected: a redirection swaps
+    ``sys.stdout`` for every thread."""
+    from inclusivegan_torch.scripts import eval_artifact
+    paths = dict(RECORD=os.path.join(tmp, "artifacts", "best_weights_eval.json"),
+                 RESTORE_DIR=os.path.join(tmp, "eval_restore"), DATA_DIR=data_dir,
+                 DATASET=MNIST_DATASET, EVAL_RESULTS=os.path.join(tmp, "eval_results"))
+    t = time.time()
+    try:
+        with mock.patch.multiple(eval_artifact, **paths):
+            result["record"] = eval_artifact.main(["--weights-file", weights,
+                                                   "--classifier", MNIST_WEIGHTS])
+        result["record_file"] = json.load(open(paths["RECORD"]))
+    except (Exception, SystemExit) as e:  # reported by the caller
+        result["error"] = repr(e)
+    result["seconds"] = time.time() - t
+
+
+def exp_watchdog(data_dir, root, tmp, backup, count, result):
+    """19(e), run on a thread: the watchdog, unchanged, supervising a run
+    that vanished before its first snapshot, relaunches the experiment once
+    from the mirror's backup with --resume-staleness 1, to total_kimg 4. Its
+    relaunch's output file goes to ``tmp`` and its sleeps are cut to 1 s.
+    Fills ``result`` with its lines to log, failures and readings."""
+    import builtins
+    lines, failures = result.setdefault("lines", []), result.setdefault("failures", [])
+    t = time.time()
+    try:
+        watchdog = load_tool("watchdog_mode_coverage")
+        vanished = os.path.join(root, "00001-stacked-synth-2k-mode-coverage")
+        os.makedirs(vanished)
+        old = time.time() - 60  # neither is taken for the relaunch's new run dir
+        for d in exp_run_dirs(root):
+            os.utime(d, (old, old))
+
+        def tmp_open(path, *args, **kwargs):
+            if isinstance(path, str) and path.startswith("/tmp/exp_relaunch_"):
+                path = os.path.join(tmp, os.path.basename(path))
+            return builtins.open(path, *args, **kwargs)
+        watchdog.open = tmp_open
+        watchdog.time = SimpleNamespace(time=time.time, strftime=time.strftime,
+                                        sleep=lambda s: time.sleep(min(s, 1.0)))
+        argv = ["--run-dir", vanished, "--pid-file", os.path.join(tmp, "run.pid"),
+                "--result-root", root, "--poll-sec", "1", "--max-relaunches", "1",
+                "--fallback-checkpoint", backup, "--fallback-count", str(count),
+                "--d-lrate", "0.002", "--rec-weight", "2.5", "--exp-script", EXP_SCRIPT,
+                "--repo-root", HERE, "--launch-args", " ".join(exp_flags(data_dir, root, 2))]
+        lines.append("$ python scripts/watchdog_mode_coverage.py " + " ".join(argv))
+        code = None
+        with mock.patch.object(sys, "argv", ["watchdog_mode_coverage.py"] + argv):
+            try:
+                watchdog.main()
+            except SystemExit as e:
+                code = e.code
+        secs = time.time() - t
+        result["watchdog_s"] = secs
+        wlog = open(os.path.join(root, "watchdog.log")).read().splitlines()
+        lines.extend("watchdog: " + ln for ln in wlog)
+        relaunches = [ln for ln in wlog if "relaunch #" in ln]
+        new_dirs = [d for d in exp_run_dirs(root) if d != vanished][1:]
+        if not (code in (0, None) and len(relaunches) == 1 and len(new_dirs) == 1
+                and f"--resume-checkpoint {backup} --resume-staleness 1" in relaunches[0]
+                and any("run finished cleanly" in ln for ln in wlog)):
+            out = os.path.join(tmp, "exp_relaunch_1.out")
+            if os.path.isfile(out):
+                lines.append(open(out).read()[-3000:])
+            failures.append(f"19(e) the watchdog: exit {code}, relaunches {relaunches}, "
+                            f"new run dirs {new_dirs}")
+            return
+        (run2,) = new_dirs
+        run_lines = open(os.path.join(run2, "log.txt")).read().splitlines()
+        stats = read_stats(os.path.join(run2, "stats.jsonl"))
+        (tick,) = [r for r in stats if "Timing/sec_per_tick" in r]
+        n_img = round(1000 * tick["Timing/sec_per_tick"] / tick["Timing/sec_per_kimg"])
+        rebuilds = sum(ln.startswith("Exact retrieval done") for ln in run_lines)
+        want_rebuilds = len(rebuild_points(2048, EXP_ITERS, 1))
+        restored = [ln for ln in run_lines if ln.startswith("Restoring full training state")]
+        override = [ln for ln in run_lines if ln.startswith("IMLE staleness override")]
+        entries = watchdog.read_metrics(run2)
+        ckpts = sorted(os.listdir(os.path.join(run2, "checkpoints")))
+        result["relaunch_count"] = entries[0][1] if entries else None
+        lines.append(
+            f"19(e) relaunched run {os.path.basename(run2)}: {restored}; {override}; its tick "
+            f"at {tick['_step']} images covers {n_img} (resumed at {tick['_step'] - n_img}, "
+            f"kimg {(tick['_step'] - n_img) // 1000}); {rebuilds} rebuilds (staleness 1: "
+            f"{want_rebuilds}; the checkpoint's 10: {len(rebuild_points(2048, EXP_ITERS, 10))})"
+            f"; metric {entries}; checkpoints {ckpts}; the watchdog {secs:.1f} s")
+        if not (restored == [f'Restoring full training state from "{backup}"...']
+                and override == ["IMLE staleness override on resume: 10 -> 1"]
+                and tick["_step"] - n_img == 2048 and rebuilds == want_rebuilds
+                and [e[0] for e in entries] == [4] and ckpts == ["step_00004096"]
+                and os.path.isfile(os.path.join(run2, "_finished.txt"))):
+            failures.append("19(e) the relaunched run")
+    except Exception as e:  # reported by the caller
+        failures.append(f"19(e) the watchdog raised {e!r}")
+        result.setdefault("watchdog_s", time.time() - t)
+
+
+def exp_resume_pkl(np, torch, ck, data_dir, restored, tmp, failures):
+    """19(e), then: --resume-pkl from the restored snapshot with
+    --resume-rampup-kimg and --resume-g-from-gs, EXP_PKL_ITERS iterations:
+    the first learning rates 0, the EMA frozen (beta 1) and G starting at
+    the snapshot's Gs."""
+    from inclusivegan_torch.training import training_loop as tloop
+    from inclusivegan_torch.training.train_state import params_of
+    first = {}
+    make = tloop.make_train_step
+
+    def make_recording(*a, **k):
+        step = make(*a, **k)
+
+        def call(state, batch, gen, g_lrate, d_lrate, gs_beta, **kw):
+            if not first:
+                first.update(g_lrate=float(g_lrate), d_lrate=float(d_lrate),
+                             gs_beta=float(gs_beta),
+                             G={n: v.detach().cpu().clone()
+                                for n, v in params_of(state.G).items()})
+            return step(state, batch, gen, g_lrate, d_lrate, gs_beta, **kw)
+        return call
+    root = os.path.join(tmp, "pkl_results")
+    with mock.patch.object(tloop, "make_train_step", make_recording):
+        _, launches, secs, _ = run_in_process(
+            torch, ck, EXP_MODULE, exp_flags(data_dir, root, 2) + [
+                "--resume-pkl", restored, "--resume-rampup-kimg", f"{EXP_RESUME_KIMG:g}",
+                "--resume-g-from-gs", "--smoke", str(EXP_PKL_ITERS)])
+    (run_dir,) = exp_run_dirs(root)
+    lines = open(os.path.join(run_dir, "log.txt")).read().splitlines()
+    _, _, snap = tloop.load_snapshot(restored, device="cpu")
+    gs = snap["gs_params"]
+    same = set(first.get("G", {})) == set(gs) and all(
+        torch.equal(first["G"][k], v) for k, v in gs.items())
+    said = [ln for ln in lines if ln.startswith(("Resume", "Loading networks"))]
+    log(f"19(e) --resume-pkl run, {EXP_PKL_ITERS} iterations, {secs:.1f} s: {said}; first "
+        f"step's G_lrate {first.get('g_lrate')}, D_lrate {first.get('d_lrate')}, Gs beta "
+        f"{first.get('gs_beta')}; G starts equal to the snapshot's Gs {same}; launches "
+        f"{launches}")
+    if not (first and first["g_lrate"] == 0.0 and first["d_lrate"] == 0.0
+            and first["gs_beta"] == 1.0 and same
+            and "Resume: initializing G from the Gs (EMA) weights" in lines
+            and os.path.isfile(os.path.join(run_dir, "network-final.pkl"))):
+        failures.append("19(e) the --resume-pkl run")
+    return dict(pkl_resume_s=secs)
+
+
+def mode_coverage_phase(np, torch, ck, data_dir, tmp):
+    """Phase 19, inside phase 17 on its stacked set: (a), (b), then (d) and
+    the watchdog of (e) on threads beside (c) and the --resume-pkl run.
+    Returns the launches of (a), its snapshot (which prd reads) and the
+    readings."""
+    import threading
+    phase(f"19 the stacked-MNIST mode-coverage experiment through the port, the mirror, "
+          f"restore, artifact evaluation and the watchdog's relaunch (budget {EXP_BUDGET_S} s)")
+    t_phase = time.time()
+    failures = []
+    root = os.path.join(tmp, "exp_results")
+    log("cut in depth only: " + "; ".join([
+        f"{MNIST_STACKED} stacked images (240000) for 1 epoch (200): total_kimg 2, "
+        f"{EXP_ITERS} iterations of {EXP_MB}, one rebuild of "
+        f"{MNIST_STACKED * EXP_SAMPLES_FACTOR} candidates, one tick, snapshot, checkpoint "
+        f"and mode_counts_24k at {EXP_METRIC_IMAGES} samples",
+        "the relaunch to total_kimg 4", f"the --resume-pkl run {EXP_PKL_ITERS} iterations",
+        "--lpips-weights artifacts/celeba_perceptual_vgg.npz, as the card's copy leaves "
+        "artifacts/perceptual_vgg.npz out"]))
+    run_dir, launches, readings = exp_training(np, torch, ck, data_dir, root, failures)
+    count, kl = readings["count"], readings["kl"]
+    weights, backup, readings["mirror_s"] = exp_mirror(np, run_dir, root, tmp, count, failures)
+    evaluated, watched = {}, {}
+    threads = [threading.Thread(target=exp_eval_artifact,
+                                args=(weights, tmp, data_dir, evaluated)),
+               threading.Thread(target=exp_watchdog,
+                                args=(data_dir, root, tmp, backup, count, watched))]
+    for t in threads:
+        t.start()
+    try:
+        restored, readings["restore_s"] = exp_restore(torch, run_dir, weights, tmp, count,
+                                                      failures)
+        readings.update(exp_resume_pkl(np, torch, ck, data_dir, restored, tmp, failures))
+    finally:
+        t_wait = time.time()
+        for t in threads:
+            t.join()
+        log(f"phase 19: waited {time.time() - t_wait:.1f} s for (d) and (e)")
+    for line in watched.get("lines", []):
+        log(line)
+    failures.extend(watched.get("failures", []))
+    readings.update({k: watched[k] for k in ("watchdog_s", "relaunch_count")
+                     if k in watched})
+    rec = evaluated.get("record") or {}
+    keys = ["artifact", "artifact_sha256", "mode_counts_24k", "KL24k", "kimg", "src_run",
+            "g_loss_batched", "classifier", "eval_run_dir", "evaluated_utc", "note"]
+    d_count, d_kl = rec.get("mode_counts_24k"), rec.get("KL24k")
+    log(f"19(d) eval_artifact: {evaluated.get('seconds', float('nan')):.1f} s (beside (e)); "
+        f"record {rec}; {evaluated.get('error', '')}")
+    readings.update(eval_s=evaluated.get("seconds"), eval_count=d_count, eval_kl=d_kl)
+    if "error" in evaluated or sorted(rec) != sorted(keys) \
+            or rec != evaluated.get("record_file"):
+        failures.append(f"19(d) eval_artifact: {evaluated.get('error')}, keys {sorted(rec)}")
+    else:
+        log(f"19(d) against (a)'s in-training metric: count {d_count} vs {count} (limit "
+            f"{EXP_COUNT_LIMIT}), KL {d_kl} vs {kl} (limit {EXP_KL_LIMIT})")
+        if not (abs(d_count - count) <= EXP_COUNT_LIMIT and abs(d_kl - kl) <= EXP_KL_LIMIT
+                and rec["kimg"] == 2 and rec["src_run"] == run_dir
+                and rec["g_loss_batched"] is True and torch.cuda.get_device_name(0)
+                in rec["note"]):
+            failures.append(f"19(d) the artifact's record against (a): {rec}")
+    secs = time.time() - t_phase
+    log(f"phase 19 took {secs:.1f} s (budget {EXP_BUDGET_S} s); readings {readings}")
+    if failures:
+        raise RuntimeError("phase 19 failed: " + "; ".join(failures))
+    if secs >= EXP_BUDGET_S:
+        raise RuntimeError(f"phase 19 took {secs:.1f} s, over its {EXP_BUDGET_S} s budget")
+    return dict(launches=launches, pkl=os.path.join(run_dir, "network-final.pkl"),
+                readings=readings)
+
+
 def main() -> int:
     import atexit
     import numpy as np
@@ -4462,7 +4873,10 @@ def main() -> int:
     # phase 18's faces, rendered by another process while phase 17 runs
     faces = Faces()
     atexit.register(faces.close)
-    sg1_launches, sg1_errs, sg1_readings = stylegan1_and_tools_phase(np, torch, ck, images)
+    sg1_launches, sg1_errs, sg1_readings, exp = stylegan1_and_tools_phase(
+        np, torch, ck, images, lambda data_dir, tmp: mode_coverage_phase(np, torch, ck,
+                                                                         data_dir, tmp))
+    sg1_launches["mode_coverage"] = exp["launches"]
     for r in records:
         # the top-level launches and timings stay the projector's (phase 14);
         # phase 17's paths are under launches_by_path, its blur rows beside

@@ -6,13 +6,22 @@ parameters and buffers, both Adam states (count, m, v), ``pl_mean``, and the
 IMLE orchestrator's ``{"cursor", "staleness"}``. It is one ``torch.save``
 file of plain tensors (on the CPU, in their dtypes) and numbers, no module,
 at ``<ckpt_dir>/step_%08d/state.pt`` with the run's ``cur_nimg`` as the
-step, so that the loop reads the resume kimg from the directory's name. It
-is written to a temporary name and moved into place, and read back with
-``weights_only=True``. The snapshot pickle (``snapshot.snapshot_dict``)
-stays the interchange format for the CLIs.
+step, so that the loop reads the resume kimg from the directory's name, and
+read back with ``weights_only=True``. The snapshot pickle
+(``snapshot.snapshot_dict``) stays the interchange format for the CLIs.
+
+A save is atomic at the directory level, as orbax's: ``state.pt`` is
+written into ``step_%08d.tmp<pid>``, a name that fails the ``step_<digits>``
+test of ``latest_checkpoint`` and of the host tools
+(``scripts/watchdog_mode_coverage.py``, ``scripts/mirror_best_checkpoint.py``),
+and the directory is renamed to ``step_%08d`` only once the file is
+complete, replacing an earlier save of the same step. A save that fails
+leaves no directory behind; a process killed in the middle leaves only the
+temporary one.
 """
 
 import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -39,7 +48,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
     the checkpoint's directory."""
     step = int(state.step) if step is None else int(step)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}")
-    os.makedirs(path, exist_ok=True)
     payload = {
         "state": {
             "step": state.step.detach().cpu(),
@@ -52,9 +60,21 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
         },
         "imle": {k: int(v) for k, v in (imle_state or {}).items()},
     }
-    tmp = os.path.join(path, f"{STATE_FILE}.tmp{os.getpid()}")
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    tmp = f"{path}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if os.path.isdir(path):  # an earlier save of this step: replaced whole
+        old = f"{path}.old{os.getpid()}"
+        os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old)
+    else:
+        os.rename(tmp, path)
     return path
 
 
@@ -87,7 +107,9 @@ def load_checkpoint(path: str, target_state: TrainState
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """The ``step_*`` directory of the highest step under ``ckpt_dir``."""
+    """The ``step_<digits>`` directory of the highest step under
+    ``ckpt_dir``; a save in progress (``step_<digits>.tmp<pid>``) is not
+    one."""
     if not os.path.isdir(ckpt_dir):
         return None
     steps = [d for d in os.listdir(ckpt_dir)

@@ -101,3 +101,67 @@ def test_latest_checkpoint_picks_the_highest_step(tmp_path):
     assert checkpoint.latest_checkpoint(str(tmp_path)) == str(tmp_path / "step_00002000")
     os.makedirs(tmp_path / "step_100000000")  # past eight digits
     assert checkpoint.latest_checkpoint(str(tmp_path)) == str(tmp_path / "step_100000000")
+
+
+def _script(name):
+    """``scripts/<name>.py`` loaded as a module, as tests/test_mirror_sidecar.py
+    loads its script."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _half_save(obj, f, *args, **kwargs):
+    """torch.save interrupted after part of the file is written."""
+    with open(f, "wb") as fh:
+        fh.write(b"PK\x03\x04 partial")
+    raise OSError("interrupted in the middle of the save")
+
+
+@pytest.mark.parametrize("killed", [False, True], ids=["raised", "killed"])
+def test_an_interrupted_save_leaves_only_complete_checkpoints(tmp_path, monkeypatch, killed):
+    """A save that fails in the middle leaves no ``step_<digits>`` directory
+    of its step: the port's ``latest_checkpoint``, the watchdog's
+    ``latest_checkpoint`` and ``checkpoint_for_kimg`` and the mirror's
+    ``checkpoint_for_kimg`` all find the earlier complete checkpoint, which
+    loads. ``killed``: the process dies before it can clean up (the
+    temporary directory stays, under a name no finder takes). An
+    interrupted re-save of a step keeps the earlier save of that step; a
+    complete one replaces it."""
+    watchdog, mirror = _script("watchdog_mode_coverage"), _script("mirror_best_checkpoint")
+    run_dir = tmp_path / "00000-stacked-synth-2k-mode-coverage"
+    cdir = str(run_dir / "checkpoints")
+    first = checkpoint.save_checkpoint(cdir, _state(0), imle_state={"cursor": 4, "staleness": 2},
+                                       step=2048)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "save", _half_save)
+        if killed:
+            m.setattr(checkpoint.shutil, "rmtree", lambda *a, **k: None)
+        for step in (4096, 2048):
+            with pytest.raises(OSError, match="interrupted"):
+                checkpoint.save_checkpoint(cdir, _state(1), step=step)
+    names = sorted(os.listdir(cdir))
+    assert [n for n in names if n[len("step_"):].isdigit()] == ["step_00002048"]
+    assert len(names) == (3 if killed else 1), names
+    assert checkpoint.latest_checkpoint(cdir) == first
+    assert watchdog.latest_checkpoint(str(run_dir)) == first
+    assert watchdog.checkpoint_for_kimg(str(run_dir), 2) == first
+    assert watchdog.checkpoint_for_kimg(str(run_dir), 4) is None
+    assert mirror.checkpoint_for_kimg(str(run_dir), 2) == first
+    assert mirror.checkpoint_for_kimg(str(run_dir), 4) is None
+    want = _tensors(_state(0))
+    restored, imle = checkpoint.load_checkpoint(first, _state(2, g_dtype=torch.float32))
+    assert imle == {"cursor": 4, "staleness": 2}
+    assert all(torch.equal(_tensors(restored)[k], v) for k, v in want.items())
+
+    again = checkpoint.save_checkpoint(cdir, _state(1), imle_state={"cursor": 8, "staleness": 4},
+                                       step=2048)
+    assert again == first
+    assert sorted(n for n in os.listdir(cdir) if n[len("step_"):].isdigit()) == ["step_00002048"]
+    restored, imle = checkpoint.load_checkpoint(again, _state(2, g_dtype=torch.float32))
+    assert imle == {"cursor": 8, "staleness": 4}
+    want = _tensors(_state(1))
+    assert all(torch.equal(_tensors(restored)[k], v) for k, v in want.items())

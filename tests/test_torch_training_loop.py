@@ -18,6 +18,7 @@ tick at the same cur_nimg and write files of the same names."""
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import time
@@ -319,10 +320,13 @@ class _Recorder:
 
     def __init__(self):
         self.steps = []
+        self.first_state = None
 
     def make(self, *args, **kwargs):
         def train_step(state, batch, _key, g_lrate, d_lrate, gs_beta, *, do_g_reg,
                        do_d_reg, rec_weight=None):
+            if self.first_state is None:
+                self.first_state = state
             self.steps.append(dict(
                 hp=(float(np.float32(g_lrate)), float(np.float32(d_lrate)),
                     float(np.float32(gs_beta)), bool(do_g_reg), bool(do_d_reg),
@@ -362,7 +366,89 @@ def _run_recorded(package, toy_dataset, root, monkeypatch, **kw):
                    for n in os.listdir(run_dir))
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
         if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
-    return rec.steps, rebuilds, ticks, files, ckpts
+    return rec.steps, rebuilds, ticks, files, ckpts, rec.first_state
+
+
+SNAPSHOT, CHECKPOINT = "<snapshot>", "<checkpoint>"  # resolved by _resume_inputs
+RESUME_NIMG = 64  # the snapshot's and the checkpoints' images
+RESUME_IMLE = {"cursor": 128, "staleness": 10}
+
+
+def _nets_of_the_loop(package):
+    """G and D as each loop builds them from ``NETS`` on the toy set (16 px,
+    4 labels)."""
+    if package == "jax":
+        from inclusivegan_tpu.models.stylegan2 import Discriminator, GMain
+    else:
+        from inclusivegan_torch.models.stylegan2 import Discriminator, GMain
+    G = GMain.create(num_channels=3, resolution=RES, label_size=4, **NETS["G_args"])
+    D = Discriminator(num_channels=3, resolution=RES, label_size=4, **NETS["D_args"])
+    return G, D
+
+
+def _write_snapshot(root):
+    """A snapshot both loops resume from, written by the port, its Gs moved
+    away from its G, and a log.txt beside it at RESUME_NIMG images."""
+    from inclusivegan_torch.snapshot import snapshot_dict
+    from inclusivegan_torch.training.train_state import create_train_state
+    path = os.path.join(root, "prev", f"network-snapshot-{RESUME_NIMG // 1000:06d}.pkl")
+    if not os.path.isfile(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        G, D = _nets_of_the_loop("port")
+        gen = torch.Generator().manual_seed(21)
+        state = create_train_state(G, D, generator=gen)
+        with torch.no_grad():
+            for p in state.Gs.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        misc.save_pkl(snapshot_dict(G, D, state), path)
+        with open(os.path.join(os.path.dirname(path), "log.txt"), "w") as f:
+            f.write(f"tick 3     kimg {RESUME_NIMG / 1000:<8g} lod 0.00 minibatch 8    "
+                    "time 1m 05s      sec/tick 1.0     sec/kimg 2.00\n")
+    return path
+
+
+def _write_checkpoint(package, root):
+    """Each package's own full-state checkpoint of a fresh state at
+    RESUME_NIMG images with the IMLE counters RESUME_IMLE."""
+    G, D = _nets_of_the_loop(package)
+    if package == "jax":
+        import jax
+        from inclusivegan_tpu.training.checkpoint import save_checkpoint
+        from inclusivegan_tpu.training.train_state import create_train_state
+        state = create_train_state(jax.random.key(0), G, D)
+    else:
+        from inclusivegan_torch.training.checkpoint import save_checkpoint
+        from inclusivegan_torch.training.train_state import create_train_state
+        state = create_train_state(G, D, generator=torch.Generator().manual_seed(0))
+    return save_checkpoint(os.path.join(root, "checkpoints"), state,
+                           imle_state=dict(RESUME_IMLE), step=RESUME_NIMG)
+
+
+def _resume_inputs(package, kw, tmp_path):
+    """``kw`` with the sentinels replaced by the files they stand for."""
+    kw = dict(kw)
+    if kw.get("resume_pkl") == SNAPSHOT:
+        kw["resume_pkl"] = _write_snapshot(str(tmp_path))
+    if kw.get("resume_checkpoint") == CHECKPOINT:
+        kw["resume_checkpoint"] = _write_checkpoint(package, str(tmp_path / f"{package}_ckpt"))
+    return kw
+
+
+def _g_starts_at_gs(package, state, snapshot):
+    """(G equals the snapshot's Gs, G equals the snapshot's G) in the state
+    of the first step, leaf for leaf in the snapshot's layout."""
+    import jax
+    from inclusivegan_torch.snapshot import state_dict_to_params
+    with open(snapshot, "rb") as f:
+        snap = pickle.load(f)
+    tree = state.g_params if package == "jax" else state_dict_to_params(state.G.state_dict())
+    got = [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+    def same(want):
+        want = jax.tree_util.tree_leaves(want)
+        return len(got) == len(want) and all(np.array_equal(a, np.asarray(b))
+                                             for a, b in zip(got, want))
+    return same(snap["Gs"]["params"]), same(snap["G"]["params"])
 
 
 PARITY = {
@@ -381,6 +467,36 @@ PARITY = {
                        G_smoothing_kimg=0.5,
                        sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB,
                                        tick_kimg_base=0.016)),
+    # --resume-pkl at 64 images (the snapshot's log.txt) with the learning
+    # rates ramping from 0 over 100 images and the Gs EMA slowed by the same
+    # ramp (beta ** ramp); one rebuild, at the resume
+    "resume_pkl_rampup": dict(
+        prefetch_depth=0, total_kimg=0.192, resume_pkl=SNAPSHOT,
+        resume_lrate_rampup_kimg=0.1, G_smoothing_kimg=0.5, save_full_checkpoints=False,
+        sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB,
+                        tick_kimg_base=0.032)),
+    # --resume-pkl with resume_g_from_gs: G starts at the snapshot's Gs
+    "resume_g_from_gs": dict(
+        prefetch_depth=0, total_kimg=0.096, resume_pkl=SNAPSHOT, resume_g_from_gs=True,
+        save_full_checkpoints=False,
+        sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB,
+                        tick_kimg_base=0.032)),
+    # --resume-checkpoint at 64 images (each package's own checkpoint, IMLE
+    # staleness 10 in it) with resume_staleness=1: rebuilds at the resume and
+    # at the 64- and 128-image boundaries (staleness 1, then doubled to 2)
+    "resume_checkpoint_staleness": dict(
+        prefetch_depth=0, total_kimg=0.192, resume_checkpoint=CHECKPOINT,
+        resume_staleness=1, save_full_checkpoints=False,
+        sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB,
+                        tick_kimg_base=0.032)),
+    # the finding about the reference: with --resume-pkl, resume_staleness
+    # does nothing in either package (the override needs resume_checkpoint),
+    # so the one rebuild stays at the resume
+    "resume_pkl_staleness_ignored": dict(
+        prefetch_depth=0, total_kimg=0.192, resume_pkl=SNAPSHOT, resume_staleness=1,
+        save_full_checkpoints=False,
+        sched_args=dict(minibatch_size_base=MB, minibatch_gpu_base=MB,
+                        tick_kimg_base=0.032)),
 }
 
 
@@ -389,14 +505,14 @@ def check_control_flow(toy_dataset, tmp_path, monkeypatch, case):
     batches, rebuilds, ticks, files and checkpoints (the test of each case
     is in test_torch_training_loop_parity.py and _prefetch.py, one file
     each, so that the two run on different workers)."""
-    kw = dict(PARITY[case], seed=5)
-    out = {}
+    out, kws = {}, {}
     for package in ("jax", "port"):
+        kws[package] = _resume_inputs(package, dict(PARITY[case], seed=5), tmp_path)
         with monkeypatch.context() as m:
             out[package] = _run_recorded(package, toy_dataset, str(tmp_path / package), m,
-                                         **kw)
-    (jsteps, jrebuilds, jticks, jfiles, jckpts) = out["jax"]
-    (steps, rebuilds, ticks, files, ckpts) = out["port"]
+                                         **kws[package])
+    (jsteps, jrebuilds, jticks, jfiles, jckpts, jfirst) = out["jax"]
+    (steps, rebuilds, ticks, files, ckpts, first) = out["port"]
     assert len(steps) == len(jsteps) > 0
     nimg = 0
     for i, (s, j) in enumerate(zip(steps, jsteps)):
@@ -414,3 +530,28 @@ def check_control_flow(toy_dataset, tmp_path, monkeypatch, case):
         assert len({s["hp"][5] for s in steps}) > 5  # the rec-weight ramp
         assert [s["hp"][3] for s in steps[:5]] == [True, False, False, False, True]
         assert [i for i, s in enumerate(steps) if s["hp"][4]] == [0, 16]
+    if case.startswith("resume"):
+        # the resumed runs go on from RESUME_NIMG: 16 iterations to 192
+        # images (8 to 96), ticks every 32 images
+        assert len(steps) == (4 if case == "resume_g_from_gs" else 16)
+        assert ticks[0] == RESUME_NIMG + 32
+    if case == "resume_pkl_rampup":
+        # the schedule, ramp included, is set once per outer iteration of
+        # minibatch_repeats (2) steps: 0, 0.16, ..., 0.96 of the rate over
+        # the 100 images, then the rate itself
+        lr = [s["hp"][0] for s in steps]
+        assert lr[0::2] == lr[1::2] and steps[0]["hp"][1:3] == (0.0, 1.0)
+        assert lr[0] == 0.0 and all(a < b for a, b in zip(lr[0:14:2], lr[2:14:2]))
+        assert lr[12] < lr[14] == float(np.float32(0.002)) and 0.0 < steps[12]["hp"][2] < 1.0
+        assert rebuilds == [0]
+    if case == "resume_g_from_gs":
+        assert _g_starts_at_gs("jax", jfirst, kws["jax"]["resume_pkl"]) == (True, False)
+        assert _g_starts_at_gs("port", first, kws["port"]["resume_pkl"]) == (True, False)
+        assert [s["hp"][0] for s in steps] == [float(np.float32(0.002))] * 4
+    if case == "resume_checkpoint_staleness":
+        # at the resume (no pool yet); at the next iteration, whose window
+        # of 2 minibatches reaches back over the 64-image boundary (staleness
+        # 1, then doubled); at the 128-image boundary (staleness 2)
+        assert rebuilds == [0, 1, 8]
+    if case == "resume_pkl_staleness_ignored":
+        assert rebuilds == [0]  # as without resume_staleness: the override needs a checkpoint

@@ -7,7 +7,7 @@ worker."""
 
 import pytest
 
-from test_torch_training_loop import check_control_flow, toy_dataset  # noqa: F401
+from test_torch_training_loop import check_control_flow, one_torch_thread, toy_dataset  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["inline_two_rebuilds"])
